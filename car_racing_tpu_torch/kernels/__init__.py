@@ -5,6 +5,8 @@
   car_racing_tpu/ops/pallas_kernels.py).
 - :mod:`.cholesky` (K2): batched SPD solve, one warp per problem (replaces
   ``cholesky_solve_batched`` of the same file).
+- :mod:`.cholesky_multi` (K3): the same with several right-hand sides,
+  sharing K2's factorization (replaces ``cholesky_solve_multi_batched``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors, counting the launches in a module-level integer

@@ -14,11 +14,18 @@ result equals a fixed count of ``iters`` iterations while the batch pays
 only the iterations its slowest problem needs.  Testing for the exit reads
 one flag back to the host per iteration.
 
-The two solvers differ where the JAX package's do: :func:`solve_qp` factors
-its Newton systems with ``torch.linalg.cholesky_ex`` (the JAX package uses
-``jnp.linalg.cholesky`` there, not a Pallas kernel) under a 1e-10 ridge;
-:func:`solve_qp_batch`, the corridor sweep's solver, sends them through
-kernel K2 under a 1e-9 ridge.  Equality rows (``p > 0``) are not ported yet.
+The two solvers differ where the JAX package's do:
+
+- :func:`solve_qp` (the controllers' solver) factors its Newton systems
+  with ``torch.linalg.cholesky_ex`` under a 1e-10 ridge when there are no
+  equality rows (the JAX package uses ``jnp.linalg.cholesky`` there, not a
+  Pallas kernel), and solves the bordered KKT matrix by LU with partial
+  pivoting when there are (ipm.py:384-393: the Cholesky+Schur path NaNs on
+  LMPC QPs, whose safe-set block leaves Hbar near-singular).
+- :func:`solve_qp_batch` (the corridor sweep's solver) sends them through
+  kernel K2 under a 1e-9 ridge, and with ``p`` equality rows eliminates
+  them by blocks (ipm.py:514-527): K3 solves ``Hbar W = [g_bar | E^T]``,
+  then the ``p x p`` Schur system gives ``dnu`` and ``dz = W_g - W_E dnu``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import cholesky
+from ..kernels import cholesky, cholesky_multi
 
 GRADE_QP = 1e3  # `converged` reports res < GRADE_QP * tol (ipm.py:63-87)
 
@@ -67,6 +74,11 @@ def _sigma_cap(dtype):
     return 1e14 if dtype == torch.float64 else 1e6
 
 
+def _eq_reg(dtype):
+    """Regularization of the equality block of the KKT matrix."""
+    return 1e-10 if dtype == torch.float64 else 1e-6
+
+
 def _kkt_residual(grad_L, c_i, c_e, s, lam):
     """Inf-norm KKT residual per problem; inputs carry a leading batch."""
     parts = [grad_L.abs(), (c_i - s).abs(), c_e.abs(), (s * lam).abs()]
@@ -90,12 +102,47 @@ def _cho_solve(Hbar, g_bar):
     return torch.where((info == 0).unsqueeze(-1), x, torch.nan)
 
 
-def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
+def _lin_solve(M, v):
+    """``jnp.linalg.solve`` semantics for a batch of vectors: LU with
+    partial pivoting, non-finite values (no error, no host sync) where
+    ``M`` is singular."""
+    return torch.linalg.solve_ex(M, v.unsqueeze(-1))[0].squeeze(-1)
+
+
+def _newton_lu(Hbar, g_bar, E, ce):
+    """:func:`solve_qp`'s Newton step (dz, dnu)."""
+    Bt, p, n = E.shape
+    if not p:
+        return _cho_solve(Hbar, g_bar), ce
+    reg = -_eq_reg(E.dtype) * torch.eye(p, dtype=E.dtype, device=E.device)
+    M = torch.cat([torch.cat([Hbar, E.mT], dim=-1),
+                   torch.cat([E, reg.expand(Bt, p, p)], dim=-1)], dim=-2)
+    sol = _lin_solve(M, torch.cat([g_bar, -ce], dim=-1))
+    return sol[:, :n], sol[:, n:]
+
+
+def _newton_blocks(solve, solve_multi):
+    """:func:`solve_qp_batch`'s Newton step (dz, dnu) through the batched
+    SPD solves ``solve`` (one right-hand side) and ``solve_multi``."""
+
+    def newton(Hbar, g_bar, E, ce):
+        p = E.shape[-2]
+        if not p:
+            return solve(Hbar, g_bar), ce
+        W = solve_multi(Hbar, torch.cat([g_bar.unsqueeze(-1), E.mT], dim=-1).contiguous())
+        W_g, W_E = W[..., 0], W[..., 1:]  # (Bt, n), (Bt, n, p)
+        S = E @ W_E + _eq_reg(E.dtype) * torch.eye(p, dtype=E.dtype, device=E.device)
+        dnu = _lin_solve(S, _bmv(E, W_g) + ce)
+        return W_g - _bmv(W_E, dnu), dnu
+
+    return newton
+
+
+def _solve(qp: QP, z0, iters, tol, ridge, newton) -> IPMSolution:
     H, g, C, d, E, e = qp.H, qp.g, qp.C, qp.d, qp.E, qp.e
     Bt, n = g.shape
     m = C.shape[-2]
-    if E.shape[-2]:
-        raise NotImplementedError("equality rows (p > 0) are not ported yet")
+    p = E.shape[-2]
     dtype, dev = g.dtype, g.device
     if tol is None:
         tol = 1e-8 if dtype == torch.float64 else 1e-3
@@ -104,16 +151,19 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
     tau = 0.995
     eye = torch.eye(n, dtype=dtype, device=dev)
 
-    no_eq = e.new_zeros(Bt, 0)
-
-    def residual(z, s, lam):
+    def residual(z, s, lam, nu):
         ci = _bmv(C, z) - d
         gL = _bmv(H, z) + g - _bmTv(C, lam)
-        return ci, gL, _kkt_residual(gL, ci, no_eq, s, lam)
+        ce = e  # (Bt, 0) without equality rows
+        if p:
+            ce = _bmv(E, z) - e
+            gL = gL + _bmTv(E, nu)
+        return ci, ce, gL, _kkt_residual(gL, ci, ce, s, lam)
 
     z = z0
     s = (_bmv(C, z0) - d).clamp_min(1e-2)
     lam = 0.1 / s
+    nu = g.new_zeros(Bt, p)
     mu = torch.full((Bt,), 1e-1, dtype=dtype, device=dev)
     done = torch.zeros(Bt, dtype=torch.bool, device=dev)
     done_iter = torch.full((Bt,), -1, dtype=torch.int32, device=dev)
@@ -121,7 +171,7 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
     for k in range(iters):
         if k and bool(done.all()):
             break
-        ci, gL, res = residual(z, s, lam)
+        ci, ce, gL, res = residual(z, s, lam, nu)
         done = done | (res < tol)
         done_iter = torch.where(done & (done_iter < 0), k, done_iter)
 
@@ -130,7 +180,7 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
         r_bar = (mu[:, None] - s * lam) / s_safe - sl * (ci - s)
         Hbar = H + (C.mT * sl[:, None, :]) @ C + ridge * eye
         g_bar = -gL + _bmTv(C, r_bar)
-        dz = newton_solve(Hbar, g_bar)
+        dz, dnu = newton(Hbar, g_bar, E, ce)
 
         Cdz = _bmv(C, dz)
         ds = Cdz + (ci - s)
@@ -141,20 +191,22 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
 
         # non-finite step guard: freeze a problem whose Newton step went NaN
         ok = (dz.isfinite().all(dim=1) & ds.isfinite().all(dim=1)
-              & dlam.isfinite().all(dim=1))
+              & dlam.isfinite().all(dim=1) & dnu.isfinite().all(dim=1))
         upd = ~done & ok
         u1 = upd[:, None]
         z = torch.where(u1, z + a_s[:, None] * dz, z)
         s = torch.where(u1, s + a_s[:, None] * ds, s)
         lam = torch.where(u1, lam + a_l[:, None] * dlam, lam)
+        if p:
+            nu = torch.where(u1, nu + a_l[:, None] * dnu, nu)
         duality = (s * lam).sum(dim=1) / max(m, 1)
         mu = torch.where(upd, (0.1 * duality).clamp_min(mu_floor), mu)
 
-    res = residual(z, s, lam)[2]
+    res = residual(z, s, lam, nu)[3]
     return IPMSolution(
         z=z,
         lam=lam,
-        nu=no_eq,
+        nu=nu,
         s=s,
         converged=res < tol * GRADE_QP,
         kkt_res=res,
@@ -165,17 +217,19 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton_solve) -> IPMSolution:
 def solve_qp(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | None = None) -> IPMSolution:
     """The dense-QP interior point of ``ipm.solve_qp``, for a batch of
     problems, each as if solved alone (the JAX fleet ``vmap``s it)."""
-    return _solve(qp, z0, iters, tol, 1e-10, _cho_solve)
+    return _solve(qp, z0, iters, tol, 1e-10, _newton_lu)
 
 
 def solve_qp_batch(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | None = None,
                    backend: str = "auto") -> IPMSolution:
     """``ipm.solve_qp_batch``: the Newton systems of the whole batch go
-    through K2 (``backend="auto"``) or its plain version (``"plain"``)."""
+    through K2, or through K3 where there are equality rows
+    (``backend="auto"``), or through the kernels' plain versions
+    (``"plain"``)."""
     if backend == "auto":
-        newton_solve = cholesky.solve
+        newton = _newton_blocks(cholesky.solve, cholesky_multi.solve_multi)
     elif backend == "plain":
-        newton_solve = cholesky.plain
+        newton = _newton_blocks(cholesky.plain, cholesky_multi.plain)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    return _solve(qp, z0, iters, tol, 1e-9, newton_solve)
+    return _solve(qp, z0, iters, tol, 1e-9, newton)

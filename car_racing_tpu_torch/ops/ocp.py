@@ -37,6 +37,15 @@ def prediction_matrices(A_seq, B_seq, C_seq, x0):
     return torch.stack(phis, dim=-2), G
 
 
+def condense(A_seq, B_seq, C_seq, x0):
+    """Flattened TV prediction matrices: ``X (..., N*n) = phi + U @ G.mT``.
+
+    Returns (phi (..., N*n), G (N*n, N*m))."""
+    phi, G = prediction_matrices(A_seq, B_seq, C_seq, x0)
+    N, n, _, m = G.shape
+    return phi.reshape(*phi.shape[:-2], N * n), G.reshape(N * n, N * m)
+
+
 def condense_lti(A, B, N: int, x0):
     """Closed form of the LTI condensation via matrix powers.
 
@@ -82,6 +91,21 @@ def quadratic_tracking_cost(phi, G, Q, R, x_targets, N):
     dx = phi - x_targets.reshape(*x_targets.shape[:-2], N * n)
     H = 2.0 * (G.mT @ Qbar @ G + Rbar)
     g = 2.0 * ((dx @ Qbar.mT) @ G)
+    return H, g
+
+
+def input_rate_cost(dR, N, u_prev):
+    """H, g of ``sum_k (u_k - u_{k-1})' dR (u_k - u_{k-1})`` with
+    ``u_{-1} = u_prev (..., m)`` (the LMPC input-rate cost).
+
+    H (N*m, N*m) is shared by the batch; g is (..., N*m)."""
+    m = dR.shape[0]
+    opts = dict(dtype=dR.dtype, device=dR.device)
+    D = torch.eye(N * m, **opts) - torch.diag(torch.ones(N * m - m, **opts), -m)
+    dRbar = torch.kron(torch.eye(N, **opts), dR)
+    H = 2.0 * D.mT @ dRbar @ D
+    g = u_prev.new_zeros(*u_prev.shape[:-1], N * m)
+    g[..., :m] += -2.0 * u_prev @ dR.mT
     return H, g
 
 

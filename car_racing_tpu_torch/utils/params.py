@@ -1,5 +1,5 @@
 """Controller parameters and vehicle limits as frozen dataclasses of tensors
-(car_racing_tpu/utils/params.py:19-134)."""
+(car_racing_tpu/utils/params.py:19-186)."""
 
 from __future__ import annotations
 
@@ -76,4 +76,29 @@ class MPCParam:
             R=_t(np.diag([0.1, 0.1]), dev, dtype),
             vt=_t(vt, dev, dtype),
             eyt=_t(eyt, dev, dtype),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LMPCParam:
+    """LMPC parameters (car_racing_tpu/utils/params.py:167-186): ``num_ss_points``
+    safe-set points in all, taken from the last ``num_ss_iter`` laps."""
+
+    Q: torch.Tensor
+    R: torch.Tensor
+    Qslack: torch.Tensor
+    dR: torch.Tensor
+    num_ss_points: int = 44
+    num_ss_iter: int = 2
+    num_horizon: int = 12
+    shift: int = 0
+
+    @staticmethod
+    def default(*, device="cuda", dtype=torch.float64) -> "LMPCParam":
+        dev = resolve(device)
+        return LMPCParam(
+            Q=_t(np.zeros((6, 6)), dev, dtype),
+            R=_t(np.diag([1.0, 0.25]), dev, dtype),
+            Qslack=_t(5 * np.diag([10, 0, 0, 1, 10, 0]), dev, dtype),
+            dR=_t(5 * np.diag([0.8, 0.0]), dev, dtype),
         )

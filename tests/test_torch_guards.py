@@ -14,9 +14,9 @@ import torch
 
 from car_racing_tpu_torch.kernels import cholesky as k2, propagate as k1
 from car_racing_tpu_torch.models import controllers
-from car_racing_tpu_torch.ops import dynamics, ipm, track
+from car_racing_tpu_torch.ops import dynamics, track
 from car_racing_tpu_torch.planning import overtake
-from car_racing_tpu_torch.utils import convert, params
+from car_racing_tpu_torch.utils import convert, fixtures, params
 
 ROOT = Path(__file__).resolve().parent.parent
 F64 = torch.float64
@@ -68,6 +68,8 @@ ENTRY_POINTS = {
     "BicycleParams.default": lambda: dynamics.BicycleParams.default(),
     "MPCParam.default": lambda: params.MPCParam.default(),
     "SystemParam.default": lambda: params.SystemParam.default(),
+    "LMPCParam.default": lambda: params.LMPCParam.default(),
+    "load_lmpc_seed": lambda: fixtures.load_lmpc_seed("l_shape"),
     "CarParam.default": lambda: params.CarParam.default(),
     "load_lti": lambda: params.load_lti(),
     "target_state": lambda: controllers.target_state(0.8, 0.0),
@@ -134,9 +136,46 @@ def test_cholesky_wrapper_takes_plain_path_on_cpu():
     assert sweep[3].all()
 
 
-def test_qp_solvers_refuse_equality_rows():
-    qp = ipm.QP(H=torch.eye(2)[None], g=torch.zeros(1, 2), C=torch.zeros(1, 1, 2),
-                d=torch.zeros(1, 1), E=torch.ones(1, 1, 2), e=torch.zeros(1, 1))
-    for solve in (ipm.solve_qp, ipm.solve_qp_batch):
-        with pytest.raises(NotImplementedError):
-            solve(qp, torch.zeros(1, 2))
+class _OnCard:
+    """Stands in for a CUDA tensor on a machine without one: it reports a
+    CUDA device and answers the wrappers' shape, type and layout checks."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+        self.dtype, self.shape = t.dtype, t.shape
+
+    def dim(self):
+        return self._t.dim()
+
+    def is_contiguous(self):
+        return True
+
+    def element_size(self):
+        return self._t.element_size()
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_cuda_tensor_launches_kernel_or_raises_never_plain(kernel, monkeypatch):
+    """A CUDA tensor reaching a solve wrapper goes to the kernel's build and
+    launch or raises; it never falls back to the plain version."""
+    from car_racing_tpu_torch.kernels import build, cholesky_multi as k3
+
+    mod, fn, rhs = {"K2": (k2, k2.solve, (3, 5)), "K3": (k3, k3.solve_multi, (3, 5, 4))}[kernel]
+    A = _OnCard(torch.eye(5, dtype=F64).expand(3, 5, 5))
+    b = _OnCard(torch.ones(rhs, dtype=F64))
+
+    def refuse(name):
+        raise RuntimeError(f"building {name} refused")
+
+    def no_plain(*args):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(mod, "plain", no_plain)
+    mod.launches = 0
+    with pytest.raises(RuntimeError, match="building cholesky_solve refused"):
+        fn(A, b)
+    assert mod.launches == 0
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fn(torch.empty(3, 5, 5, device="meta"), torch.empty(rhs, device="meta"))

@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""How far the LMPC learning lap can wander from its golden.
+
+    python -m tools.lmpc_lap_spread [--ulps 12] [--layouts l_shape,goggle] [--port] [--out F]
+
+Run from the repository root.
+
+Runs the JAX package's ``rollout_lmpc_lap`` on the CPU in float64 from each
+layout's committed seed lap, once as it is and once for each nudge of the
+initial vx by k = -ulps..ulps units in the last place, and prints one JSON
+line per lap: its step count, the largest distance from the golden
+(``data/goldens/lmpc_lap_<layout>.csv``) on the rows they share, the first
+row off the golden by more than 1e-2, and the first LMPC solve that stops
+unconverged at the iteration cap.  With ``--port`` the PyTorch port's lap
+runs from the same nudged states on the CPU too.  The last line summarises
+each layout and package: the lap steps and the first rows off of the
+nudged laps; ``--out`` writes that summary to a file as well.
+
+``data/goldens/lmpc_lap_spread.json`` is the summary of ``--ulps 12``
+(24 nudged laps a layout).  ``chip_smoke.py`` and ``tests/test_torch_lmpc.py``
+hold the port's laps to it: on the golden up to the earliest row a nudged
+JAX lap leaves it, and no further from the golden's lap steps than the
+furthest nudged JAX lap.  Rerun this script with ``--out`` when the JAX lap
+or its goldens change.  On the CPU a JAX lap takes a few seconds, a lap of
+the port 10 to 60 s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from car_racing_tpu.ops import dynamics as jdyn  # noqa: E402
+from car_racing_tpu.ops import track as jtrack  # noqa: E402
+from car_racing_tpu.racing import fused as jfused  # noqa: E402
+from car_racing_tpu.utils import params as jparams  # noqa: E402
+
+LAP_STEPS = {"l_shape": 250, "goggle": 350, "m_shape": 700, "ellipse": 400}
+ATOL = 1e-2
+
+
+def nudge(x0, k):
+    """``x0`` with its vx moved by ``k`` units in the last place."""
+    x = x0.copy()
+    for _ in range(abs(k)):
+        x[0] = np.nextafter(x[0], np.inf if k > 0 else -np.inf)
+    return x
+
+
+def jax_lap(layout, sd, x0):
+    j = lambda k: jnp.asarray(sd[k])
+    cap = jparams.LMPCParam.default()
+    xc, _, _, lap_steps = jfused.rollout_lmpc_lap(
+        jtrack.load_track(layout, width=1.0), jdyn.BicycleParams.default(), cap,
+        jparams.SystemParam.default(), jnp.asarray(x0), j("xglob0"), j("ss1"), j("q1"),
+        j("ss2"), j("q2"), j("u1"), j("u2"), j("valid1"), j("valid2"),
+        jnp.asarray(sd["counter"], jnp.int32), j("lin_points0"), j("lin_input0"),
+        n_steps=LAP_STEPS[layout])
+    return np.asarray(xc), int(lap_steps), None  # the scan does not expose its solves
+
+
+def port_lap(layout, x0):
+    import torch
+
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused
+    from car_racing_tpu_torch.utils import fixtures, params
+
+    kw = dict(device="cpu", dtype=torch.float64)
+    sd = fixtures.load_lmpc_seed(layout, **kw)
+    solves = []
+    xc, _, _, lap_steps = fused.rollout_lmpc_lap(
+        track.load_track(layout, width=1.0, **kw), dynamics.BicycleParams.default(**kw),
+        params.LMPCParam.default(**kw), params.SystemParam.default(**kw),
+        torch.as_tensor(x0, **kw), sd["xglob0"], sd["ss1"], sd["q1"], sd["ss2"], sd["q2"],
+        sd["u1"], sd["u2"], sd["valid1"], sd["valid2"], sd["counter"], sd["lin_points0"],
+        sd["lin_input0"], n_steps=LAP_STEPS[layout], solves=solves)
+    conv = [bool(s.converged[0]) for s in solves]
+    return xc.numpy(), lap_steps, (conv.index(False) if False in conv else None)
+
+
+def compare(xc, lap_steps, golden):
+    xc = xc[: lap_steps + 1]
+    m = min(len(xc), len(golden))
+    err = np.abs(xc[:m] - golden[:m]).max(axis=1)
+    off = np.nonzero(err > ATOL)[0]
+    return {"lap_steps": lap_steps, "max_abs_err": float(err.max()),
+            "first_row_off": int(off[0]) if len(off) else None}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ulps", type=int, default=12, help="nudge vx by -ulps..ulps")
+    ap.add_argument("--layouts", default=",".join(LAP_STEPS))
+    ap.add_argument("--port", action="store_true", help="also run the port's lap")
+    ap.add_argument("--out", help="also write the summary to this JSON file")
+    args = ap.parse_args()
+    summary = {}
+    for layout in args.layouts.split(","):
+        with np.load(f"data/bench/lmpc_seed_{layout}.npz") as f:
+            sd = {k: f[k] for k in f.files}
+        golden = np.loadtxt(f"data/goldens/lmpc_lap_{layout}.csv", delimiter=",")
+        runs = [("jax", jax_lap)] + ([("port", lambda lo, _, x: port_lap(lo, x))]
+                                     if args.port else [])
+        for pkg, lap in runs:
+            rows = []
+            for k in range(-args.ulps, args.ulps + 1):
+                xc, lap_steps, first_capped = lap(layout, sd, nudge(sd["xcurv0"], k))
+                row = {"layout": layout, "package": pkg, "vx_ulps": k,
+                       **compare(xc, lap_steps, golden), "first_capped_step": first_capped}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+            nudged = [r for r in rows if r["vx_ulps"] != 0]
+            offs = [r["first_row_off"] for r in nudged if r["first_row_off"] is not None]
+            summary[f"{layout}/{pkg}"] = {
+                "golden_lap_steps": len(golden) - 1, "atol": ATOL, "vx_ulps": args.ulps,
+                "unnudged_lap_steps": next(r["lap_steps"] for r in rows if r["vx_ulps"] == 0),
+                "unnudged_max_abs_err": next(r["max_abs_err"] for r in rows
+                                             if r["vx_ulps"] == 0),
+                "nudged_lap_steps": sorted(r["lap_steps"] for r in nudged),
+                "nudged_first_row_off": sorted(offs),
+                "nudged_on_golden": len(nudged) - len(offs)}
+    print(json.dumps({"summary": summary}), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+            f.write("\n")
+
+
+if __name__ == "__main__":
+    main()
