@@ -1,46 +1,65 @@
-// K2 and K3: batched SPD solves, one warp per problem.
+// K2 and K3: batched SPD solves, one team of threads per problem.
 //
-// K2 (cholesky_solve_kernel) replaces cholesky_solve_batched /
-// _cholesky_solve_kernel of car_racing_tpu/ops/pallas_kernels.py, the
-// lane-major Pallas kernel that solved the interior point's Newton systems
-// for a whole batch on the TPU: A (B, n, n), b (B, n) -> x (B, n).
+// K2 (cholesky_solve_batched / _cholesky_solve_kernel of
+// car_racing_tpu/ops/pallas_kernels.py) solved the interior point's Newton
+// systems for a whole batch on the TPU: A (B, n, n), b (B, n) -> x (B, n).
+// K3 (cholesky_solve_multi_batched / _cholesky_solve_multi_kernel of the
+// same file) is one factorization, then r right-hand sides:
+// A (B, n, n), Brhs (B, n, r) -> X (B, n, r); the JAX package reaches it
+// from ipm.solve_qp_batch when the QPs have p equality rows (r = 1 + p).
+// Both are one kernel here: K2 is K3 with r = 1 (kernels/cholesky.py).
 //
-// K3 (cholesky_solve_multi_kernel) replaces cholesky_solve_multi_batched /
-// _cholesky_solve_multi_kernel of the same file: one factorization, then r
-// right-hand sides, A (B, n, n), Brhs (B, n, r) -> X (B, n, r).  The JAX
-// package reaches it from ipm.solve_qp_batch when the QPs have p equality
-// rows (r = 1 + p, the block-eliminated KKT step).
-//
-// The algorithm of both is the TPU kernels': a column-by-column Cholesky
-// with rank-1 downdates, the diagonal floored at 1e-30 before the
-// reciprocal square root, then forward and back substitution dividing by
+// The algorithm is the TPU kernels': a column-by-column Cholesky with
+// rank-1 downdates, the diagonal floored at 1e-30 before the reciprocal
+// square root, then forward and back substitution dividing by
 // max(L_ii, 1e-30).  The TPU's lane-major layout, lane blocks and identity
-// padding are not carried over.  Both kernels share the factorization
-// (factor below), so K3 factors exactly as K2 does.
+// padding are not carried over.
 //
-// Layout: each warp copies its (n, n) matrix into shared memory with a row
-// stride of n | 1 (odd, so the 32 lanes of a column access fall in distinct
-// banks) and its right-hand sides beside it, one contiguous vector of n per
-// right-hand side.  Lane i owns rows i, i + 32, ... of the factorization;
-// only the lower triangle of A is read.  K3's substitutions spread the
-// (row, right-hand side) pairs of each column step over the lanes, so the r
-// right-hand sides take the 2n dependent steps of one, not 2nr.
+// What bounds it on an H100: on paper the bytes.  K3 at the LMPC QP's
+// (256, 68, 68) with r = 8 in f64 moves 11.7 MB (3.5 us at 3.35 TB/s) and
+// does about 47 MFLOP (1.4 us at 34 TFLOP/s of f64 outside the tensor
+// cores).  In fact it is the latency of one problem's 3n dependent steps
+// (n factorization steps, then n forward and n back substitution steps),
+// each ended by a barrier: one problem alone takes about as long as 256
+// (the card holds them all at once).  One warp a problem with whole rows a
+// lane, as an earlier version of this kernel had it, makes the busiest
+// lane run a serial loop of up to n read-modify-writes a step, and fits
+// one warp a block under 48 KB.
 //
-// What bounds them on an H100: on paper the bytes.  K2 at the corridor
-// sweep's (256, 20, 20) in f32 moves 0.45 MB (0.13 us at 3.35 TB/s) and
-// does about 1 MFLOP.  K3 at the LMPC QP's (256, 68, 68) with r = 8 in f64
-// moves 11.7 MB (3.5 us) and does about 47 MFLOP (1.4 us at 34 TFLOP/s of
-// f64 outside the tensor cores).  In practice the time is the latency of
-// the 3n dependent column steps, each a shared-memory round trip and a
-// warp barrier, with about n^2 / 64 downdates per lane in the early
-// columns.  The design keeps every step inside one warp (no block-wide
-// barriers, no global memory between steps) and runs the problems side by
-// side: up to 4 warps a block under the 48 KB of static-size shared memory.
-// K3's f64 LMPC shape needs (68 * 69 + 8 * 68) * 8 = 41,888 bytes a warp,
-// so it runs one warp a block; a size that does not fit 48 KB in one warp
-// is refused (the wrapper raises before the launch).
+// This design:
+// - A team of threads owns one problem: a warp for n <= 32 (several
+//   problems a block, __syncwarp between steps), a whole block of 256
+//   threads above (one problem a block, __syncthreads).  More threads
+//   shorten each thread's share of a step, the latency that bounds it,
+//   but lengthen the barrier and, at 256 problems, share the SM with the
+//   other block; 256 did best of 128, 256 and 512 at the LMPC shape.
+//   kernels/cholesky.py::plan makes this choice.
+// - Column step j downdates the (n-j-1)(n-j)/2 elements of the trailing
+//   lower triangle, spread over the team: thread (ty, tx) takes rows
+//   j + 1 + ty (mod rows of threads) and in them columns j + 1 + tx (mod
+//   threads along a row), a warp along a row in a block team.  Every load
+//   comes from column j, which the step never writes, or from the
+//   thread's own elements; so nothing races and one barrier ends the step.
+//   L[i,j] = a[i,j] * rsqrt(max(a[j,j], 1e-30)) is formed where it is
+//   used; the scaled column is stored one step later, when nobody reads
+//   it.  A thread loads kRows rows' elements before it stores any of them.
+// - The substitutions spread each step's (row, right-hand side) pairs over
+//   the team, walked without integer division; the thread that updates
+//   the next pivot row divides it at once, so again one barrier a step.
+// - Each element sees the same operations in the same order as in the
+//   row-per-lane design (downdates in column order, no fused multiply-add
+//   under --fmad=false), so the results are bit-identical to it.
+// - Memory: the problem lives in shared memory with a row stride of n | 1
+//   (odd, so a column's entries fall in distinct banks), its right-hand
+//   sides (n, r) beside it.  Above 48 KB a block opts in to dynamic
+//   shared memory, up to the H100's 232,448 bytes.  A problem larger than
+//   that (f64, r = 8: n >= 167) runs the same kernel on a per-problem copy
+//   in device memory (scratch from the wrapper), with 64-bit indices.
+//   There is no size limit.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,187 +69,200 @@ __device__ __forceinline__ double k_rsqrt(double x) { return rsqrt(x); }
 template <typename T>
 __device__ __forceinline__ T floor_at(T x, T lo) { return x < lo ? lo : x; }
 
-constexpr int kMaxWarps = 4;
-constexpr size_t kMaxSmem = 48 * 1024;
-
-__host__ __device__ inline int row_stride(int n) { return n | 1; }
-
-template <typename T>
-__host__ __device__ inline size_t smem_per_warp(int n, int r) {
-  return (static_cast<size_t>(n) * row_stride(n) + static_cast<size_t>(r) * n) * sizeof(T);
+template <bool kBlockTeam>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (kBlockTeam) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
 }
 
-// Cholesky factorization of the warp's matrix in shared memory (row stride
-// ld): column j of L overwrites column j of the lower triangle.
-template <typename T>
-__device__ void factor(T* a, int n, int ld, int lane) {
-  const T floor_ = T(1e-30);
-  for (int j = 0; j < n; ++j) {
-    const T inv = k_rsqrt(floor_at(a[j * ld + j], floor_));
-    __syncwarp();
-    for (int i = j + lane; i < n; i += 32) a[i * ld + j] *= inv;
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) {
-      const T lij = a[i * ld + j];
-      for (int k = j + 1; k <= i; ++k) a[i * ld + k] -= lij * a[k * ld + j];
+// Keeps the compiler from moving memory accesses across this point: the
+// loads above it are all issued before the stores below it.
+__device__ __forceinline__ void loads_before_stores() { asm volatile("" ::: "memory"); }
+
+// A: (B, n, n), Brhs: (B, n, r), X: (B, n, r); all contiguous.  scratch:
+// (B, n * (n | 1) + n * r) when the problems live in device memory, else
+// unused.  Only the lower triangle of A is used.
+template <typename T, bool kBlockTeam, bool kShared>
+__global__ void cholesky_solve_kernel(const T* __restrict__ A, const T* __restrict__ Brhs,
+                                      T* __restrict__ X, T* scratch, int B, int n, int r) {
+  using Index = std::conditional_t<kShared, int, long long>;
+  // threads along a row of the matrix: a warp in a block team, so that a
+  // warp's accesses to a row are contiguous; 8 in a warp team (4 rows)
+  constexpr int kRowLanes = kBlockTeam ? 32 : 8;
+  constexpr int kRows = 4;   // rows of a thread downdated together
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rank = kBlockTeam ? threadIdx.x : (threadIdx.x & 31);
+  const int size = kBlockTeam ? blockDim.x : 32;
+  const int slot = kBlockTeam ? 0 : (threadIdx.x >> 5);
+  const int prob = kBlockTeam ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + slot;
+  if (prob >= B) return;  // a whole warp team; a block team never leaves (grid = B)
+  const int tx = rank % kRowLanes, ty = rank / kRowLanes, row_groups = size / kRowLanes;
+  const Index nn = n, rr = r, ld = n | 1;
+  const Index per = nn * ld + nn * rr;
+  T* a;
+  if constexpr (kShared) {
+    a = reinterpret_cast<T*>(smem_raw) + slot * per;
+  } else {
+    a = scratch + static_cast<Index>(prob) * per;
+  }
+  T* v = a + nn * ld;  // v[i * r + c]: row i of right-hand side c
+
+  const T* Ap = A + static_cast<Index>(prob) * nn * nn;
+  const T* Bp = Brhs + static_cast<Index>(prob) * nn * rr;
+#pragma unroll 4
+  for (Index e = rank; e < nn * nn; e += size) a[(e / nn) * ld + e % nn] = Ap[e];
+#pragma unroll 4
+  for (Index e = rank; e < nn * rr; e += size) v[e] = Bp[e];
+  team_sync<kBlockTeam>();
+
+  const T lo = T(1e-30);
+  // factorization: column j of L overwrites column j of the lower triangle.
+  // Step j downdates a[i][k], j < k <= i, by L[i][j] L[k][j]: thread (ty,
+  // tx) takes rows i = j + 1 + ty (mod row_groups), kRows of them at a
+  // time, and in them columns k = j + 1 + tx (mod kRowLanes).  The loads
+  // of a batch all precede its stores (loads_before_stores), so they can
+  // be in flight together; the compiler keeps a load that follows a store
+  // to the same array behind it, as it cannot tell the addresses apart.
+  T inv_prev = T(0);
+  for (Index j = 0; j < nn; ++j) {
+    const T inv = k_rsqrt(floor_at(a[j * ld + j], lo));
+    if (j > 0) {  // store column j - 1 of L; no step reads it any more
+      for (Index i = j - 1 + rank; i < nn; i += size) a[i * ld + j - 1] *= inv_prev;
     }
-    __syncwarp();
-  }
-}
-
-// A: (B, n, n), b: (B, n), x: (B, n); all contiguous.
-template <typename T>
-__global__ void cholesky_solve_kernel(const T* __restrict__ A, const T* __restrict__ b,
-                                      T* __restrict__ x, int B, int n) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int prob = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (prob >= B) return;  // only warp-level barriers below
-  const int ld = row_stride(n);
-  T* a = reinterpret_cast<T*>(smem_raw + warp * smem_per_warp<T>(n, 1));
-  T* v = a + static_cast<size_t>(n) * ld;
-
-  const T* Ap = A + static_cast<size_t>(prob) * n * n;
-  for (int i = lane; i < n * n; i += 32) a[(i / n) * ld + i % n] = Ap[i];
-  for (int i = lane; i < n; i += 32) v[i] = b[static_cast<size_t>(prob) * n + i];
-  __syncwarp();
-
-  const T floor_ = T(1e-30);
-  factor(a, n, ld, lane);
-  // forward substitution L y = b (y overwrites v)
-  for (int j = 0; j < n; ++j) {
-    const T yj = v[j] / floor_at(a[j * ld + j], floor_);
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) v[i] -= a[i * ld + j] * yj;
-    if (lane == 0) v[j] = yj;
-    __syncwarp();
-  }
-  // back substitution L^T x = y (x overwrites v)
-  for (int i = n - 1; i >= 0; --i) {
-    const T xi = v[i] / floor_at(a[i * ld + i], floor_);
-    __syncwarp();
-    for (int k = lane; k < i; k += 32) v[k] -= a[i * ld + k] * xi;
-    if (lane == 0) v[i] = xi;
-    __syncwarp();
-  }
-  for (int i = lane; i < n; i += 32) x[static_cast<size_t>(prob) * n + i] = v[i];
-}
-
-// A: (B, n, n), Brhs: (B, n, r), X: (B, n, r); all contiguous.
-template <typename T>
-__global__ void cholesky_solve_multi_kernel(const T* __restrict__ A, const T* __restrict__ Brhs,
-                                            T* __restrict__ X, int B, int n, int r) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int prob = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (prob >= B) return;  // only warp-level barriers below
-  const int ld = row_stride(n);
-  T* a = reinterpret_cast<T*>(smem_raw + warp * smem_per_warp<T>(n, r));
-  T* v = a + static_cast<size_t>(n) * ld;  // v[c * n + i]: row i of right-hand side c
-
-  const T* Ap = A + static_cast<size_t>(prob) * n * n;
-  const T* Bp = Brhs + static_cast<size_t>(prob) * n * r;
-  for (int i = lane; i < n * n; i += 32) a[(i / n) * ld + i % n] = Ap[i];
-  for (int i = lane; i < n * r; i += 32) v[(i % r) * n + i / r] = Bp[i];
-  __syncwarp();
-
-  const T floor_ = T(1e-30);
-  factor(a, n, ld, lane);
-  // forward substitution L Y = Brhs (Y overwrites v)
-  for (int j = 0; j < n; ++j) {
-    const T d = floor_at(a[j * ld + j], floor_);
-    for (int c = lane; c < r; c += 32) v[c * n + j] /= d;
-    __syncwarp();
-    for (int t = lane; t < (n - 1 - j) * r; t += 32) {
-      const int i = j + 1 + t / r, c = t % r;
-      v[c * n + i] -= a[i * ld + j] * v[c * n + j];
+    for (Index i0 = j + 1 + ty; i0 < nn; i0 += kRows * row_groups) {
+      const Index i_max = min(i0 + (kRows - 1) * row_groups, nn - 1);
+      T lij[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const Index i = i0 + u * row_groups;
+        lij[u] = i < nn ? a[i * ld + j] * inv : T(0);
+      }
+      for (Index k = j + 1 + tx; k <= i_max; k += kRowLanes) {
+        const T akj = a[k * ld + j];
+        T old[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const Index i = i0 + u * row_groups;
+          old[u] = k <= i && i < nn ? a[i * ld + k] : T(0);
+        }
+        loads_before_stores();
+        const T lkj = akj * inv;
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const Index i = i0 + u * row_groups;
+          if (k <= i && i < nn) a[i * ld + k] = old[u] - lij[u] * lkj;
+        }
+      }
     }
-    __syncwarp();
+    inv_prev = inv;
+    team_sync<kBlockTeam>();
   }
-  // back substitution L^T X = Y (X overwrites v)
-  for (int i = n - 1; i >= 0; --i) {
-    const T d = floor_at(a[i * ld + i], floor_);
-    for (int c = lane; c < r; c += 32) v[c * n + i] /= d;
-    __syncwarp();
-    for (int t = lane; t < i * r; t += 32) {
-      const int k = t / r, c = t % r;
-      v[c * n + k] -= a[i * ld + k] * v[c * n + i];
+  if (rank == 0) a[(nn - 1) * ld + nn - 1] *= inv_prev;
+  team_sync<kBlockTeam>();
+
+  // substitutions: thread rank takes the (row, right-hand side) pairs
+  // q * r + c = rank (mod size) of each step, walked without division
+  const Index q0 = rank / rr, c0 = rank % rr, q_step = size / rr, c_step = size % rr;
+  // forward substitution L Y = Brhs (Y overwrites v), row 0 first
+  for (Index c = rank; c < rr; c += size) v[c] /= floor_at(a[0], lo);
+  team_sync<kBlockTeam>();
+  for (Index j = 0; j + 1 < nn; ++j) {
+    const T d_next = floor_at(a[(j + 1) * ld + j + 1], lo);
+    for (Index q = q0, c = c0; q < nn - 1 - j;) {
+      const Index i = j + 1 + q;
+      T w = v[i * rr + c] - a[i * ld + j] * v[j * rr + c];
+      if (q == 0) w = w / d_next;
+      v[i * rr + c] = w;
+      q += q_step;
+      c += c_step;
+      if (c >= rr) c -= rr, ++q;
     }
-    __syncwarp();
+    team_sync<kBlockTeam>();
   }
-  T* Xp = X + static_cast<size_t>(prob) * n * r;
-  for (int i = lane; i < n * r; i += 32) Xp[i] = v[(i % r) * n + i / r];
-}
-
-// Warps per block: as many as the shared memory takes, at most kMaxWarps.
-int warps_for(size_t per_warp) {
-  int warps = kMaxWarps;
-  while (warps > 1 && warps * per_warp > kMaxSmem) warps >>= 1;
-  return warps;
-}
-
-template <typename T>
-int launch(const T* A, const T* b, T* x, int B, int n, void* stream) {
-  const size_t per_warp = smem_per_warp<T>(n, 1);
-  if (n < 1 || B < 1 || per_warp > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = warps_for(per_warp);
-  const int blocks = (B + warps - 1) / warps;
-  cholesky_solve_kernel<T><<<blocks, warps * 32, warps * per_warp,
-                             static_cast<cudaStream_t>(stream)>>>(A, b, x, B, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_multi(const T* A, const T* Brhs, T* X, int B, int n, int r, void* stream) {
-  const size_t per_warp = smem_per_warp<T>(n, r);
-  if (n < 1 || r < 1 || B < 1 || per_warp > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  // back substitution L^T X = Y (X overwrites v), row n - 1 first
+  for (Index c = rank; c < rr; c += size) {
+    v[(nn - 1) * rr + c] /= floor_at(a[(nn - 1) * ld + nn - 1], lo);
   }
-  const int warps = warps_for(per_warp);
-  const int blocks = (B + warps - 1) / warps;
-  cholesky_solve_multi_kernel<T><<<blocks, warps * 32, warps * per_warp,
-                                   static_cast<cudaStream_t>(stream)>>>(A, Brhs, X, B, n, r);
-  return static_cast<int>(cudaGetLastError());
+  team_sync<kBlockTeam>();
+  for (Index i = nn - 1; i > 0; --i) {
+    const T d_next = floor_at(a[(i - 1) * ld + i - 1], lo);
+    for (Index k = q0, c = c0; k < i;) {
+      T w = v[k * rr + c] - a[i * ld + k] * v[i * rr + c];
+      if (k == i - 1) w = w / d_next;
+      v[k * rr + c] = w;
+      k += q_step;
+      c += c_step;
+      if (c >= rr) c -= rr, ++k;
+    }
+    team_sync<kBlockTeam>();
+  }
+  T* Xp = X + static_cast<Index>(prob) * nn * rr;
+  for (Index e = rank; e < nn * rr; e += size) Xp[e] = v[e];
+}
+
+template <typename T, bool kBlockTeam, bool kShared>
+cudaError_t launch_as(const T* A, const T* Brhs, T* X, T* scratch, int B, int n, int r,
+                      int threads, int blocks, int smem_bytes, cudaStream_t stream) {
+  auto* kernel = cholesky_solve_kernel<T, kBlockTeam, kShared>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, threads, smem_bytes, stream>>>(A, Brhs, X, scratch, B, n, r);
+  return cudaGetLastError();
+}
+
+// The launch plan comes from kernels/cholesky.py::plan: team is 32 (a warp
+// a problem, per_block problems a block) or the threads of a block (one
+// problem a block); smem_bytes is the block's dynamic shared memory, 0 when
+// the problems live in scratch.  A plan that does not fit its problem is
+// refused with cudaErrorInvalidValue.
+template <typename T>
+int launch(const T* A, const T* Brhs, T* X, T* scratch, int B, int n, int r, int team,
+           int per_block, int smem_bytes, void* stream) {
+  const bool block_team = team != 32;
+  const long long per_bytes =
+      (static_cast<long long>(n) * (n | 1) + static_cast<long long>(n) * r) * sizeof(T);
+  const bool shared = scratch == nullptr;
+  const bool valid =
+      B >= 1 && n >= 1 && r >= 1 && team >= 32 && team % 32 == 0 && team <= 1024 &&
+      per_block >= 1 && (!block_team || per_block == 1) && 32 * per_block <= 1024 &&
+      (shared ? smem_bytes >= per_block * per_bytes : smem_bytes == 0);
+  if (!valid) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = block_team ? team : 32 * per_block;
+  const int blocks = block_team ? B : (B + per_block - 1) / per_block;
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (block_team) {
+    err = shared ? launch_as<T, true, true>(A, Brhs, X, scratch, B, n, r, threads, blocks,
+                                            smem_bytes, st)
+                 : launch_as<T, true, false>(A, Brhs, X, scratch, B, n, r, threads, blocks,
+                                             smem_bytes, st);
+  } else {
+    err = shared ? launch_as<T, false, true>(A, Brhs, X, scratch, B, n, r, threads, blocks,
+                                             smem_bytes, st)
+                 : launch_as<T, false, false>(A, Brhs, X, scratch, B, n, r, threads, blocks,
+                                              smem_bytes, st);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest n one warp's shared memory takes, for K2's wrapper.
-int cholesky_solve_max_n(int itemsize) {
-  int n = 1;
-  while ((static_cast<size_t>(n + 1) * row_stride(n + 1) + n + 1) * itemsize <= kMaxSmem) ++n;
-  return n;
+int cholesky_solve_f32(const float* A, const float* Brhs, float* X, float* scratch, int B,
+                       int n, int r, int team, int per_block, int smem_bytes, void* stream) {
+  return launch<float>(A, Brhs, X, scratch, B, n, r, team, per_block, smem_bytes, stream);
 }
 
-// Whether one warp's shared memory takes an (n, n) matrix and r right-hand
-// sides, for K3's wrapper.
-int cholesky_solve_multi_fits(int n, int r, int itemsize) {
-  return n >= 1 && r >= 1 &&
-         (static_cast<size_t>(n) * row_stride(n) + static_cast<size_t>(r) * n) * itemsize <=
-             kMaxSmem;
-}
-
-int cholesky_solve_f32(const float* A, const float* b, float* x, int B, int n, void* stream) {
-  return launch<float>(A, b, x, B, n, stream);
-}
-
-int cholesky_solve_f64(const double* A, const double* b, double* x, int B, int n,
-                       void* stream) {
-  return launch<double>(A, b, x, B, n, stream);
-}
-
-int cholesky_solve_multi_f32(const float* A, const float* Brhs, float* X, int B, int n, int r,
-                             void* stream) {
-  return launch_multi<float>(A, Brhs, X, B, n, r, stream);
-}
-
-int cholesky_solve_multi_f64(const double* A, const double* Brhs, double* X, int B, int n,
-                             int r, void* stream) {
-  return launch_multi<double>(A, Brhs, X, B, n, r, stream);
+int cholesky_solve_f64(const double* A, const double* Brhs, double* X, double* scratch, int B,
+                       int n, int r, int team, int per_block, int smem_bytes, void* stream) {
+  return launch<double>(A, Brhs, X, scratch, B, n, r, team, per_block, smem_bytes, stream);
 }
 
 const char* kernel_error_string(int code) {

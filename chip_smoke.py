@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (car_racing_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 
 Run from the repository root.  It builds the CUDA kernels from
 ``car_racing_tpu_torch/csrc/`` into ``build/torch_kernels/``, holds each
@@ -9,16 +9,20 @@ kernel against its plain PyTorch version on the card, drives the two paths
 of the port through the entry points a user calls, and times each kernel
 beside its bound:
 
-1. build: one nvcc per source, all at once;
+1. build: one nvcc per source, all at once, and ptxas' registers, stack
+   and spills for every kernel;
 2. K1 (integrator) against its plain loop, B = 256, f32 and f64;
-3. K2 (batched Cholesky solve) against its plain version, f32 and f64;
+3. K2 (batched Cholesky solve) against its plain version, f32 and f64, at
+   the sweep's n = 20 and at n = 100, 130 and 180 (dynamic shared memory
+   and device memory);
 4. K3 (the same with several right-hand sides) against its plain version,
-   f32 and f64, at the LMPC QP's shape and a small one;
+   f32 and f64, at the LMPC QP's shape, a small one, and n = 100 and 180;
 5. the MPC-LTI goldens of ``data/goldens/`` on the card in f64, through K1;
 6. the four LMPC learning laps in f64 from the committed seeds, through K1,
    against their goldens as far as the JAX lap nudged by a few ulps holds
-   them (``data/goldens/lmpc_lap_spread.json``), and the l_shape lap timed
-   and in f32;
+   them (``data/goldens/lmpc_lap_spread.json``), and the l_shape lap timed,
+   per step of a 250-step call and per step of a call of the lap's own
+   length, in f64 and in f32 (the f32 lap held to the nudged JAX f32 laps);
 7. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
 8. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
    with the plain solve;
@@ -30,6 +34,13 @@ beside its bound:
 then the ``kernels`` line, the card's name and power limit, and the ``ok``
 line.
 
+With ``--against DIR``, where DIR holds ``propagate.cu`` and
+``cholesky_solve.cu`` of an earlier tree (the C interface of the kernels
+before the launch plan: ``cholesky_solve_f{32,64}(A, b, x, B, n, stream)``
+and ``cholesky_solve_multi_f{32,64}(A, Brhs, X, B, n, r, stream)``), it also
+builds those and reports, for every input of phases 2-4, whether their
+outputs equal this tree's kernels' bit for bit.
+
 Every phase prints one JSON line.  A failed phase ends the script with exit
 code 1 and no ``ok`` line; without a GPU, or outside a checkout of the
 repository, it exits nonzero before any result.
@@ -37,6 +48,7 @@ repository, it exits nonzero before any result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -86,6 +98,25 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, match, reps=20):
+    """Mean duration on the device of the kernels named ``*match*`` over
+    ``reps`` calls of ``fn``, from a torch.profiler trace: the kernel alone,
+    without the host's cost of launching it, which back-to-back calls timed
+    with CUDA events include once it is the longer of the two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
 def device_profile(fn, wall_ms):
     """Device time of one call of ``fn`` from a torch.profiler trace: the
     union of its kernels' intervals, their count, and the largest by name.
@@ -120,21 +151,14 @@ def device_profile(fn, wall_ms):
 def k1_bound_ms(B, n_seg, n_sub, itemsize):
     nbytes = itemsize * (B * (6 + 6 + 2) + 3 * n_seg + 11 + B * (6 + 6))
     ops = B * n_sub * K1_OPS_PER_SUBSTEP
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    peak = PEAK_F64_OPS_PER_S if itemsize == 8 else PEAK_F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def k2_bound_ms(B, n, itemsize):
-    factor = sum(2 + (n - j) + (n - j - 1) * (n - j) for j in range(n))
-    substitute = 2 * sum(2 + 2 * (n - j - 1) for j in range(n))
-    nbytes = itemsize * B * (n * n + n + n)
-    ops = B * (factor + substitute)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
-
-
-def k3_bound_ms(B, n, r, itemsize):
-    """K2's count with one factorization and r substitutions; f64 at its own peak."""
+def solve_bound_ms(B, n, r, itemsize):
+    """K2 (r = 1) and K3: one factorization and r substitutions, each type
+    at its own peak."""
     factor = sum(2 + (n - j) + (n - j - 1) * (n - j) for j in range(n))
     substitute = 2 * sum(2 + 2 * (n - j - 1) for j in range(n))
     nbytes = itemsize * B * (n * n + n * r + n * r)
@@ -144,7 +168,65 @@ def k3_bound_ms(B, n, r, itemsize):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def run():
+def compare_with_earlier(src_dir, checks):
+    """Phase ``against``: build ``propagate.cu`` and ``cholesky_solve.cu``
+    from ``src_dir`` (the C interface described in the module docstring),
+    run them on the inputs of phases 2-4 and report whether each output
+    equals this tree's bit for bit.  A shape the earlier kernel refuses is
+    reported as refused."""
+    import ctypes
+
+    import torch
+
+    from car_racing_tpu_torch.kernels import build, propagate as k1
+
+    t0 = time.perf_counter()
+    build.build_all(build.SOURCES, src_dir)
+    old_k1, old_solve = (build.load(n, src_dir) for n in ("propagate", "cholesky_solve"))
+    emit({"phase": "against_build", "src_dir": str(src_dir),
+          "seconds": time.perf_counter() - t0})
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for kernel, name, inputs, got in checks:
+        f = "f32" if name == "f32" else "f64"
+        stream = torch.cuda.current_stream().cuda_stream
+        if kernel == "K1":
+            tr, bike, xg, xc, u, control_dt = inputs
+            table, par = k1.kernel_tables(tr, bike)
+            outs = (torch.empty_like(xg), torch.empty_like(xc))
+            fn = getattr(old_k1, f"propagate_{f}")
+            fn.argtypes = [ptr, i32] + [ptr] * 6 + [i32, i32, ctypes.c_double, ptr]
+            code = fn(table.data_ptr(), table.shape[1], par.data_ptr(), xg.data_ptr(),
+                      xc.data_ptr(), u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                      xc.shape[0], round(control_dt / 0.001), 0.001, stream)
+            shape = [xc.shape[0]]
+        else:
+            A, rhs = inputs
+            outs = (torch.empty_like(rhs),)
+            n = A.shape[1]
+            if kernel == "K2":
+                fn = getattr(old_solve, f"cholesky_solve_{f}")
+                fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
+                code = fn(A.data_ptr(), rhs.data_ptr(), outs[0].data_ptr(), A.shape[0], n, stream)
+            else:
+                fn = getattr(old_solve, f"cholesky_solve_multi_{f}")
+                fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+                code = fn(A.data_ptr(), rhs.data_ptr(), outs[0].data_ptr(), A.shape[0], n,
+                          rhs.shape[2], stream)
+            shape = list(rhs.shape)
+            got = (got,)
+        torch.cuda.synchronize()
+        row = {"phase": "against", "kernel": kernel, "dtype": name, "shape": shape}
+        if code != 0:
+            emit({**row, "refused": old_solve.kernel_error_string(code).decode()})
+            continue
+        equal = all(torch.equal(g.view(bits[g.dtype]), o.view(bits[o.dtype]))
+                    for g, o in zip(got, outs))
+        diff = max(float((g - o).abs().max()) for g, o in zip(got, outs))
+        emit({**row, "bit_equal": equal, "max_abs_diff": diff})
+
+
+def run(against=None):
     import torch
 
     from car_racing_tpu_torch.kernels import build, cholesky as k2, cholesky_multi as k3
@@ -168,10 +250,8 @@ def run():
     reports = build.build_all()
     for name in build.SOURCES:
         build.load(name)
-    ptxas = {n: [ln.strip() for ln in r.splitlines() if "Used" in ln or "spill" in ln]
-             for n, r in reports.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(reports),
-          "ptxas": ptxas})
+          "ptxas": {n: build.ptxas_summary(r) for n, r in reports.items()}})
 
     def setup(layout, width, dtype):
         kw = dict(device=dev, dtype=dtype)
@@ -196,6 +276,7 @@ def run():
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
         return t(xg), t(xc), t(u)
 
+    checks = []  # (kernel, dtype name, inputs, outputs) of phases 2-4, for --against
     k1_err = {}
     rng = np.random.default_rng(0)
     for dtype, name in ((f32, "f32"), (f64, "f64")):
@@ -212,6 +293,7 @@ def run():
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             finite = all(bool(g.isfinite().all()) for g in got)
             k1_err[(name, case)] = err
+            checks.append(("K1", name, (tr, bike, xg, xc, u, control_dt), got))
             emit({"phase": "k1_check", "dtype": name, "case": case, "B": 256,
                   "control_dt": control_dt, "max_abs_err": err, "bound": bound})
             require(finite and err <= bound, f"K1 {name} {case}: max_abs_err {err} > {bound}")
@@ -224,19 +306,29 @@ def run():
         return (torch.as_tensor(A, dtype=dtype, device=dev),
                 torch.as_tensor(b, dtype=dtype, device=dev))
 
+    def check_solve(kernel, fn, plain, A, rhs, name, bound, errs, key):
+        got, want = fn(A, rhs), plain(A, rhs)
+        torch.cuda.synchronize()
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        errs[key] = abs_err
+        Bn, n = A.shape[0], A.shape[1]
+        r = rhs.shape[2] if rhs.dim() == 3 else 1
+        plan = k2.plan(n, r, A.element_size())
+        emit({"phase": f"{kernel.lower()}_check", "dtype": name, "B": Bn, "n": n, "r": r,
+              "team": plan.team, "per_block": plan.per_block,
+              "memory": "shared" if plan.shared else "device", "shared_bytes": plan.shared_bytes,
+              "max_abs_err": abs_err, "max_rel_err": rel, "bound_rel": bound})
+        require(bool(got.isfinite().all()) and rel <= bound,
+                f"{kernel} {name} B={Bn} n={n} r={r}: relative error {rel} > {bound}")
+        checks.append((kernel, name, (A, rhs), got))
+
+    bounds = {"f32": 1e-4, "f64": 1e-8}
     k2_err = {}
-    for dtype, name, bound in ((f32, "f32", 1e-4), (f64, "f64", 1e-8)):
+    for dtype, name in ((f32, "f32"), (f64, "f64")):
         for B in (256, 130):
             A, b = spd_batch(rng, B, 20, dtype)
-            got, want = k2.solve(A, b), k2.plain(A, b)
-            torch.cuda.synchronize()
-            abs_err = float((got - want).abs().max())
-            rel = abs_err / float(want.abs().max())
-            k2_err[(name, B)] = abs_err
-            emit({"phase": "k2_check", "dtype": name, "B": B, "n": 20, "max_abs_err": abs_err,
-                  "max_rel_err": rel, "bound_rel": bound})
-            require(bool(got.isfinite().all()) and rel <= bound,
-                    f"K2 {name} B={B}: relative error {rel} > {bound}")
+            check_solve("K2", k2.solve, k2.plain, A, b, name, bounds[name], k2_err, (name, B))
 
     # ---- 4. K3 against its plain version (K2's bounds) ------------------------
     def spd_multi(rng, B, n, r, dtype):
@@ -244,18 +336,22 @@ def run():
         return A, torch.as_tensor(rng.standard_normal((B, n, r)), dtype=dtype, device=dev)
 
     k3_err = {}
-    for dtype, name, bound in ((f32, "f32", 1e-4), (f64, "f64", 1e-8)):
+    for dtype, name in ((f32, "f32"), (f64, "f64")):
         for n, r in ((68, 8), (20, 5)):
             A, Bm = spd_multi(rng, 256, n, r, dtype)
-            got, want = k3.solve_multi(A, Bm), k3.plain(A, Bm)
-            torch.cuda.synchronize()
-            abs_err = float((got - want).abs().max())
-            rel = abs_err / float(want.abs().max())
-            k3_err[(name, n)] = abs_err
-            emit({"phase": "k3_check", "dtype": name, "B": 256, "n": n, "r": r,
-                  "max_abs_err": abs_err, "max_rel_err": rel, "bound_rel": bound})
-            require(bool(got.isfinite().all()) and rel <= bound,
-                    f"K3 {name} n={n} r={r}: relative error {rel} > {bound}")
+            check_solve("K3", k3.solve_multi, k3.plain, A, Bm, name, bounds[name], k3_err,
+                        (name, n))
+
+    # past the shared memory a block has without opting in (n = 100, 130) and
+    # past what it can opt in to (n = 180: device memory)
+    big = np.random.default_rng(10)
+    for dtype, name, n in ((f64, "f64", 100), (f64, "f64", 180), (f32, "f32", 130)):
+        A, b = spd_batch(big, 64, n, dtype)
+        check_solve("K2", k2.solve, k2.plain, A, b, name, bounds[name], k2_err, (name, 64, n))
+    for n in (100, 180):
+        A, Bm = spd_multi(big, 64, n, 8, f64)
+        check_solve("K3", k3.solve_multi, k3.plain, A, Bm, "f64", bounds["f64"], k3_err,
+                    ("f64", n))
 
     # ---- 5. MPC-LTI goldens on the card, f64, through K1 -----------------------
     for layout, width, n_steps in (("l_shape", 0.8, 100), ("goggle", 1.0, 150),
@@ -344,21 +440,40 @@ def run():
         require(xc[lap_steps - 1, 4] < L <= xc[lap_steps, 4], f"{layout}: lap end misplaced")
         require(float(np.abs(xc[:, 5]).max()) <= 1.0, f"{layout}: the lap leaves the track")
 
-    lap_ms = {}
-    # ms per control step, the l_shape lap again after the warm-up lap above
+    # ms per control step of the l_shape lap: over a 250-step call (after
+    # the lap ends, its steps repeat one frozen solve) and over a call of
+    # exactly the lap's steps, counted by an untimed lap just before
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for dtype, name in ((f64, "f64"), (f32, "f32")):
-        solves = []
+
+    def timed_lap(n_steps, dtype, solves):
         torch.cuda.synchronize()
         start.record()
-        (xc, _, _, lap_steps), _, _ = lmpc_lap("l_shape", 250, dtype, solves)
+        (xc, _, _, lap_steps), _, L = lmpc_lap("l_shape", n_steps, dtype, solves)
         end.record()
         end.synchronize()
-        lap_ms[name] = start.elapsed_time(end) / 250
-        _, stats = lap_stats(solves, lap_steps)
+        return start.elapsed_time(end) / n_steps, xc, lap_steps, L
+
+    f32_ref = lap_spread["l_shape/jax_f32"]
+    f32_dev = max(abs(n - f32_ref["reference_lap_steps"]) for n in f32_ref["nudged_lap_steps"])
+    for dtype, name in ((f64, "f64"), (f32, "f32")):
+        (_, _, _, lap_steps), _, _ = lmpc_lap("l_shape", 250, dtype, None)
+        solves = []
+        ms_per_step, xc, steps_250, _ = timed_lap(250, dtype, solves)
+        ms_per_lap_step, xc_lap, steps_lap, L = timed_lap(lap_steps, dtype, None)
+        _, stats = lap_stats(solves, steps_250)
         emit({"phase": "lmpc_lap_time", "name": "lmpc_lap_l_shape", "dtype": name,
-              "ms_per_step": lap_ms[name], "lap_steps": lap_steps,
-              "finite": bool(xc.isfinite().all()), **stats})
+              "ms_per_step": ms_per_step, "ms_per_lap_step": ms_per_lap_step,
+              "lap_steps": lap_steps, "finite": bool(xc.isfinite().all()),
+              **({"jax_f32_reference_lap_steps": f32_ref["reference_lap_steps"],
+                  "lap_steps_dev_bound": f32_dev} if name == "f32" else {}), **stats})
+        require(steps_250 == lap_steps and steps_lap == lap_steps,
+                f"l_shape {name}: lap of {steps_250} and {steps_lap} steps after {lap_steps}")
+        require(float(xc_lap[-2, 4]) < L <= float(xc_lap[-1, 4]),
+                f"l_shape {name}: the {lap_steps}-step call does not end the lap")
+        if name == "f32":
+            require(abs(lap_steps - f32_ref["reference_lap_steps"]) <= f32_dev,
+                    f"l_shape f32: {lap_steps} lap steps, more than {f32_dev} from the JAX "
+                    f"f32 lap's {f32_ref['reference_lap_steps']}")
 
     # ---- 7. MPC-LTI fleet, f32: K1's main path ------------------------------
     fleet = setup("l_shape", 0.8, f32)
@@ -488,46 +603,62 @@ def run():
             f"eq_batch: {eq_k3} K3 and {eq_k2} K2 launches for {runs} iterations")
 
     # ---- 10. kernel timings at the paths' shapes ------------------------------
-    tr = fleet[0]
-    bike = fleet[1]
-    xg, xcs, u = period_states(np.random.default_rng(1), 256, False, f32)
-    k1_ms = cuda_ms(lambda: k1.propagate(tr, bike, xg, xcs, u), 50)
-    k1_plain_ms = cuda_ms(lambda: k1.plain(tr, bike, xg, xcs, u), 3, 1)
-    k1_bound, k1_by, k1_bytes, k1_ops = k1_bound_ms(256, tr.num_segments, 100, 4)
+    # K1 at the fleet's B = 256 in f32 and the LMPC step's B = 1 in f64 (and
+    # 256); a call is 100 dependent substeps, so ns_per_substep is the time
+    # one substep takes on the kernel's critical path
+    tr, bike = fleet[0], fleet[1]
     gold = setup("l_shape", 0.8, f64)
+    xg, xcs, u = period_states(np.random.default_rng(1), 256, False, f32)
     args64 = [a.to(f64) for a in (xg, xcs, u)]
-    k1_ms_f64 = cuda_ms(lambda: k1.propagate(gold[0], gold[1], *args64), 50)
-    emit({"phase": "time_k1", "B": 256, "dtype": "f32", "n_sub": 100, "ms": k1_ms,
-          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-          "bytes": k1_bytes, "ops": k1_ops, "ms_f64": k1_ms_f64})
+    k1_times = {}
+    for name, B, args in (("f32", 256, (tr, bike, xg, xcs, u)),
+                          ("f64", 1, (gold[0], gold[1], *(a[:1].contiguous() for a in args64))),
+                          ("f64", 256, (gold[0], gold[1], *args64))):
+        ms = cuda_ms(lambda: k1.propagate(*args), 50)
+        device_ms = kernel_device_ms(lambda: k1.propagate(*args), "propagate_kernel")
+        plain_ms = cuda_ms(lambda: k1.plain(*args), 3, 1)
+        bound, by, nbytes, ops = k1_bound_ms(B, tr.num_segments, 100, 4 if name == "f32" else 8)
+        k1_times[(name, B)] = (ms, device_ms, plain_ms, bound, by)
+        emit({"phase": "time_k1", "B": B, "dtype": name, "n_sub": 100, "ms": ms,
+              "device_ms": device_ms,
+              "ns_per_substep": None if device_ms is None else device_ms * 1e6 / 100,
+              "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops})
+    k1_ms, k1_device_ms, k1_plain_ms, k1_bound, k1_by = k1_times[("f32", 256)]
+
+    def library(A, rhs):
+        """One PyTorch call's worth of the same solve, timed and used nowhere else."""
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_solve(rhs, L)
 
     A, b = spd_batch(np.random.default_rng(2), 256, 20, f32)
-
-    def library():
-        L, _ = torch.linalg.cholesky_ex(A)
-        return torch.cholesky_solve(b.unsqueeze(-1), L)
-
     k2_ms = cuda_ms(lambda: k2.solve(A, b), 200)
+    k2_device_ms = kernel_device_ms(lambda: k2.solve(A, b), "cholesky_solve_kernel")
     k2_plain_ms = cuda_ms(lambda: k2.plain(A, b), 50)
-    k2_lib_ms = cuda_ms(library, 50)
-    k2_bound, k2_by, k2_bytes, k2_ops = k2_bound_ms(256, 20, 4)
+    k2_lib_ms = cuda_ms(lambda: library(A, b.unsqueeze(-1)), 50)
+    k2_bound, k2_by, k2_bytes, k2_ops = solve_bound_ms(256, 20, 1, 4)
     emit({"phase": "time_k2", "B": 256, "n": 20, "dtype": "f32", "ms": k2_ms,
-          "plain_ms": k2_plain_ms, "library_ms": k2_lib_ms, "bound_ms": k2_bound,
-          "bound_by": k2_by, "bytes": k2_bytes, "ops": k2_ops})
+          "device_ms": k2_device_ms, "plain_ms": k2_plain_ms, "library_ms": k2_lib_ms,
+          "bound_ms": k2_bound, "bound_by": k2_by, "bytes": k2_bytes, "ops": k2_ops})
 
-    A3, B3 = spd_multi(np.random.default_rng(3), 256, 68, 8, f64)
-
-    def library_multi():
-        L, _ = torch.linalg.cholesky_ex(A3)
-        return torch.cholesky_solve(B3, L)
-
-    k3_ms = cuda_ms(lambda: k3.solve_multi(A3, B3), 200)
-    k3_plain_ms = cuda_ms(lambda: k3.plain(A3, B3), 50)
-    k3_lib_ms = cuda_ms(library_multi, 50)
-    k3_bound, k3_by, k3_bytes, k3_ops = k3_bound_ms(256, 68, 8, 8)
-    emit({"phase": "time_k3", "B": 256, "n": 68, "r": 8, "dtype": "f64", "ms": k3_ms,
-          "plain_ms": k3_plain_ms, "library_ms": k3_lib_ms, "bound_ms": k3_bound,
-          "bound_by": k3_by, "bytes": k3_bytes, "ops": k3_ops})
+    # K3 at the LMPC QP's n = 68 and at n = 100, past the old 48 KB a problem
+    k3_times = {}
+    for n, seed in ((68, 3), (100, 4)):
+        A3, B3 = spd_multi(np.random.default_rng(seed), 256, n, 8, f64)
+        ms = cuda_ms(lambda: k3.solve_multi(A3, B3), 200)
+        device_ms = kernel_device_ms(lambda: k3.solve_multi(A3, B3), "cholesky_solve_kernel")
+        plain_ms = cuda_ms(lambda: k3.plain(A3, B3), 50)
+        lib_ms = cuda_ms(lambda: library(A3, B3), 50)
+        bound, by, nbytes, ops = solve_bound_ms(256, n, 8, 8)
+        k3_times[n] = (ms, device_ms, plain_ms, lib_ms, bound, by)
+        emit({"phase": "time_k3", "B": 256, "n": n, "r": 8, "dtype": "f64", "ms": ms,
+              "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+              "bound_by": by, "bytes": nbytes, "ops": ops})
+    k3_ms, k3_device_ms, k3_plain_ms, k3_lib_ms, k3_bound, k3_by = k3_times[68]
+    # one LMPC problem alone: the latency of its 3n dependent steps
+    A1, B1 = spd_multi(np.random.default_rng(5), 1, 68, 8, f64)
+    emit({"phase": "time_k3", "B": 1, "n": 68, "r": 8, "dtype": "f64",
+          "device_ms": kernel_device_ms(lambda: k3.solve_multi(A1, B1), "cholesky_solve_kernel")})
 
     # ---- 11. where the time goes: device busy share under torch.profiler ----
     paths = {
@@ -543,22 +674,25 @@ def run():
         emit({"phase": "profile", "name": name, "wall_ms": walls[name],
               **device_profile(fn, walls[name])})
 
+    if against is not None:
+        compare_with_earlier(against, checks)
+
     emit({"kernels": [
         {"name": "propagate", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/propagate.cu",
          "replaces": "car_racing_tpu/ops/pallas_kernels.py:436", "launches": fleet_k1,
-         "max_abs_err": k1_err[("f32", "nominal")], "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "max_abs_err": k1_err[("f32", "nominal")], "ms": k1_ms, "device_ms": k1_device_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "cholesky_solve", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/cholesky_solve.cu",
          "replaces": "car_racing_tpu/ops/pallas_kernels.py:108", "launches": sweep_k2,
-         "max_abs_err": k2_err[("f32", 256)], "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "max_abs_err": k2_err[("f32", 256)], "ms": k2_ms, "device_ms": k2_device_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms},
         {"name": "cholesky_solve_multi", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/cholesky_solve.cu",
          "replaces": "car_racing_tpu/ops/pallas_kernels.py:202", "launches": eq_k3,
-         "max_abs_err": k3_err[("f64", 68)], "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "max_abs_err": k3_err[("f64", 68)], "ms": k3_ms, "device_ms": k3_device_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib_ms},
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -569,6 +703,10 @@ def run():
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="also compare the kernels bit for bit with those built from DIR")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError as exc:
@@ -584,7 +722,7 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
     try:
-        result = run()
+        result = run(args.against)
     except Exception as exc:  # report the failure, print no result
         import traceback
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How far the LMPC learning lap can wander from its golden.
 
-    python -m tools.lmpc_lap_spread [--ulps 12] [--layouts l_shape,goggle] [--port] [--out F]
+    python -m tools.lmpc_lap_spread [--ulps 12] [--layouts l_shape,goggle] [--port]
+                                    [--dtype f64|f32] [--out F]
 
 Run from the repository root.
 
@@ -12,15 +13,21 @@ line per lap: its step count, the largest distance from the golden
 (``data/goldens/lmpc_lap_<layout>.csv``) on the rows they share, the first
 row off the golden by more than 1e-2, and the first LMPC solve that stops
 unconverged at the iteration cap.  With ``--port`` the PyTorch port's lap
-runs from the same nudged states on the CPU too.  The last line summarises
-each layout and package: the lap steps and the first rows off of the
-nudged laps; ``--out`` writes that summary to a file as well.
+runs from the same nudged states on the CPU too.  With ``--dtype f32``
+every lap runs in float32, vx is nudged by float32 ulps, and the laps are
+compared with the unnudged JAX float32 lap instead of the float64 golden
+(f32 and f64 learn different laps).  The last line summarises each layout
+and package (keys ``<layout>/<package>``, with ``_f32`` appended in
+float32): the lap steps and the first rows off of the nudged laps;
+``--out`` merges that summary into a JSON file as well.
 
 ``data/goldens/lmpc_lap_spread.json`` is the summary of ``--ulps 12``
-(24 nudged laps a layout).  ``chip_smoke.py`` and ``tests/test_torch_lmpc.py``
-hold the port's laps to it: on the golden up to the earliest row a nudged
-JAX lap leaves it, and no further from the golden's lap steps than the
-furthest nudged JAX lap.  Rerun this script with ``--out`` when the JAX lap
+(24 nudged laps a layout), with ``--port`` and, for l_shape, ``--dtype f32``.
+``chip_smoke.py`` and ``tests/test_torch_lmpc.py`` hold the port's laps to
+its ``*/jax`` entries: on the golden up to the earliest row a nudged JAX
+lap leaves it, and no further from the golden's lap steps than the furthest
+nudged JAX lap; ``chip_smoke.py`` holds the f32 l_shape lap's steps to
+``l_shape/jax_f32`` alike.  Rerun this script with ``--out`` when the JAX lap
 or its goldens change.  On the CPU a JAX lap takes a few seconds, a lap of
 the port 10 to 60 s.
 """
@@ -51,7 +58,7 @@ ATOL = 1e-2
 
 
 def nudge(x0, k):
-    """``x0`` with its vx moved by ``k`` units in the last place."""
+    """``x0`` with its vx moved by ``k`` units in the last place of its dtype."""
     x = x0.copy()
     for _ in range(abs(k)):
         x[0] = np.nextafter(x[0], np.inf if k > 0 else -np.inf)
@@ -59,25 +66,32 @@ def nudge(x0, k):
 
 
 def jax_lap(layout, sd, x0):
-    j = lambda k: jnp.asarray(sd[k])
-    cap = jparams.LMPCParam.default()
+    """The JAX lap from ``x0``, in ``x0``'s dtype."""
+    ft = jnp.float32 if x0.dtype == np.float32 else jnp.float64
+    if ft == jnp.float32:
+        cast = lambda tree: jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree)
+    else:
+        cast = lambda tree: tree
+    j = lambda k: jnp.asarray(sd[k], ft)
     xc, _, _, lap_steps = jfused.rollout_lmpc_lap(
-        jtrack.load_track(layout, width=1.0), jdyn.BicycleParams.default(), cap,
-        jparams.SystemParam.default(), jnp.asarray(x0), j("xglob0"), j("ss1"), j("q1"),
-        j("ss2"), j("q2"), j("u1"), j("u2"), j("valid1"), j("valid2"),
+        cast(jtrack.load_track(layout, width=1.0)), cast(jdyn.BicycleParams.default()),
+        cast(jparams.LMPCParam.default()), cast(jparams.SystemParam.default()),
+        jnp.asarray(x0), j("xglob0"), j("ss1"), j("q1"), j("ss2"), j("q2"), j("u1"), j("u2"),
+        jnp.asarray(sd["valid1"]), jnp.asarray(sd["valid2"]),
         jnp.asarray(sd["counter"], jnp.int32), j("lin_points0"), j("lin_input0"),
         n_steps=LAP_STEPS[layout])
     return np.asarray(xc), int(lap_steps), None  # the scan does not expose its solves
 
 
 def port_lap(layout, x0):
+    """The port's lap from ``x0``, in ``x0``'s dtype, on the CPU."""
     import torch
 
     from car_racing_tpu_torch.ops import dynamics, track
     from car_racing_tpu_torch.racing import fused
     from car_racing_tpu_torch.utils import fixtures, params
 
-    kw = dict(device="cpu", dtype=torch.float64)
+    kw = dict(device="cpu", dtype=torch.float32 if x0.dtype == np.float32 else torch.float64)
     sd = fixtures.load_lmpc_seed(layout, **kw)
     solves = []
     xc, _, _, lap_steps = fused.rollout_lmpc_lap(
@@ -90,10 +104,12 @@ def port_lap(layout, x0):
     return xc.numpy(), lap_steps, (conv.index(False) if False in conv else None)
 
 
-def compare(xc, lap_steps, golden):
+def compare(xc, lap_steps, ref):
+    """Lap steps, and distance from the reference lap ``ref`` on the rows
+    the two share."""
     xc = xc[: lap_steps + 1]
-    m = min(len(xc), len(golden))
-    err = np.abs(xc[:m] - golden[:m]).max(axis=1)
+    m = min(len(xc), len(ref))
+    err = np.abs(xc[:m] - ref[:m]).max(axis=1)
     off = np.nonzero(err > ATOL)[0]
     return {"lap_steps": lap_steps, "max_abs_err": float(err.max()),
             "first_row_off": int(off[0]) if len(off) else None}
@@ -104,27 +120,39 @@ def main():
     ap.add_argument("--ulps", type=int, default=12, help="nudge vx by -ulps..ulps")
     ap.add_argument("--layouts", default=",".join(LAP_STEPS))
     ap.add_argument("--port", action="store_true", help="also run the port's lap")
-    ap.add_argument("--out", help="also write the summary to this JSON file")
+    ap.add_argument("--dtype", choices=("f64", "f32"), default="f64",
+                    help="run the laps in this dtype (f32: against the unnudged JAX f32 lap)")
+    ap.add_argument("--out", help="also merge the summary into this JSON file")
     args = ap.parse_args()
+    f32 = args.dtype == "f32"
+    if f32:  # as the package runs in f32: with x64 on, literals would promote to f64
+        jax.config.update("jax_enable_x64", False)
     summary = {}
     for layout in args.layouts.split(","):
         with np.load(f"data/bench/lmpc_seed_{layout}.npz") as f:
             sd = {k: f[k] for k in f.files}
-        golden = np.loadtxt(f"data/goldens/lmpc_lap_{layout}.csv", delimiter=",")
+        x0 = sd["xcurv0"].astype(np.float32 if f32 else np.float64)
+        if f32:
+            xc, lap_steps, _ = jax_lap(layout, sd, x0)
+            ref = xc[: lap_steps + 1]
+            where = {"reference": "the unnudged JAX f32 lap", "reference_lap_steps": lap_steps}
+        else:
+            ref = np.loadtxt(f"data/goldens/lmpc_lap_{layout}.csv", delimiter=",")
+            where = {"golden_lap_steps": len(ref) - 1}
         runs = [("jax", jax_lap)] + ([("port", lambda lo, _, x: port_lap(lo, x))]
                                      if args.port else [])
         for pkg, lap in runs:
             rows = []
             for k in range(-args.ulps, args.ulps + 1):
-                xc, lap_steps, first_capped = lap(layout, sd, nudge(sd["xcurv0"], k))
-                row = {"layout": layout, "package": pkg, "vx_ulps": k,
-                       **compare(xc, lap_steps, golden), "first_capped_step": first_capped}
+                xc, lap_steps, first_capped = lap(layout, sd, nudge(x0, k))
+                row = {"layout": layout, "package": pkg, "dtype": args.dtype, "vx_ulps": k,
+                       **compare(xc, lap_steps, ref), "first_capped_step": first_capped}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
             nudged = [r for r in rows if r["vx_ulps"] != 0]
             offs = [r["first_row_off"] for r in nudged if r["first_row_off"] is not None]
-            summary[f"{layout}/{pkg}"] = {
-                "golden_lap_steps": len(golden) - 1, "atol": ATOL, "vx_ulps": args.ulps,
+            summary[f"{layout}/{pkg}" + ("_f32" if f32 else "")] = {
+                **where, "atol": ATOL, "vx_ulps": args.ulps,
                 "unnudged_lap_steps": next(r["lap_steps"] for r in rows if r["vx_ulps"] == 0),
                 "unnudged_max_abs_err": next(r["max_abs_err"] for r in rows
                                              if r["vx_ulps"] == 0),
@@ -133,8 +161,13 @@ def main():
                 "nudged_on_golden": len(nudged) - len(offs)}
     print(json.dumps({"summary": summary}), flush=True)
     if args.out:
+        merged = {}
+        if os.path.exists(args.out):
+            with open(args.out) as f:
+                merged = json.load(f)
+        merged.update(summary)
         with open(args.out, "w") as f:
-            json.dump(summary, f, indent=1)
+            json.dump(merged, f, indent=1)
             f.write("\n")
 
 
