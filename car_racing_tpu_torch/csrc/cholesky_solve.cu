@@ -32,8 +32,10 @@
 //   threads above (one problem a block, __syncthreads).  More threads
 //   shorten each thread's share of a step, the latency that bounds it,
 //   but lengthen the barrier and, at 256 problems, share the SM with the
-//   other block; 256 did best of 128, 256 and 512 at the LMPC shape.
-//   kernels/cholesky.py::plan makes this choice.
+//   other block.  The block team is 256: on an H100, 128 and 512 threads
+//   take 13-19 % longer at (256, n, n), r = 8, f64, n = 68 and 100
+//   (chip_smoke.py, phase k3_team; PERF.md).  kernels/cholesky.py::plan
+//   chooses.
 // - Column step j downdates the (n-j-1)(n-j)/2 elements of the trailing
 //   lower triangle, spread over the team: thread (ty, tx) takes rows
 //   j + 1 + ty (mod rows of threads) and in them columns j + 1 + tx (mod
@@ -53,8 +55,9 @@
 //   (odd, so a column's entries fall in distinct banks), its right-hand
 //   sides (n, r) beside it.  Above 48 KB a block opts in to dynamic
 //   shared memory, up to the H100's 232,448 bytes.  A problem larger than
-//   that (f64, r = 8: n >= 167) runs the same kernel on a per-problem copy
-//   in device memory (scratch from the wrapper), with 64-bit indices.
+//   that (f64, r = 8: n >= 167) runs the same kernel, with a block team,
+//   on a per-problem copy in device memory (scratch from the wrapper), with
+//   64-bit indices.
 //   There is no size limit.
 
 #include <cuda_runtime.h>
@@ -83,8 +86,10 @@ __device__ __forceinline__ void team_sync() {
 __device__ __forceinline__ void loads_before_stores() { asm volatile("" ::: "memory"); }
 
 // A: (B, n, n), Brhs: (B, n, r), X: (B, n, r); all contiguous.  scratch:
-// (B, n * (n | 1) + n * r) when the problems live in device memory, else
-// unused.  Only the lower triangle of A is used.
+// (B, n * (n | 1) + n * r) when the problems live in device memory (block
+// teams only), else unused.  Only the lower triangle of A is used.  Index
+// is int for offsets inside one problem in shared memory; a problem's
+// offset into A, Brhs, X and scratch is always 64-bit.
 template <typename T, bool kBlockTeam, bool kShared>
 __global__ void cholesky_solve_kernel(const T* __restrict__ A, const T* __restrict__ Brhs,
                                       T* __restrict__ X, T* scratch, int B, int n, int r) {
@@ -100,18 +105,20 @@ __global__ void cholesky_solve_kernel(const T* __restrict__ A, const T* __restri
   const int prob = kBlockTeam ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + slot;
   if (prob >= B) return;  // a whole warp team; a block team never leaves (grid = B)
   const int tx = rank % kRowLanes, ty = rank / kRowLanes, row_groups = size / kRowLanes;
+  static_assert(kBlockTeam || kShared, "a warp team works in shared memory");
   const Index nn = n, rr = r, ld = n | 1;
   const Index per = nn * ld + nn * rr;
+  const long long g = prob;  // the problem's offsets into global memory
   T* a;
   if constexpr (kShared) {
     a = reinterpret_cast<T*>(smem_raw) + slot * per;
   } else {
-    a = scratch + static_cast<Index>(prob) * per;
+    a = scratch + g * per;
   }
   T* v = a + nn * ld;  // v[i * r + c]: row i of right-hand side c
 
-  const T* Ap = A + static_cast<Index>(prob) * nn * nn;
-  const T* Bp = Brhs + static_cast<Index>(prob) * nn * rr;
+  const T* Ap = A + g * n * n;
+  const T* Bp = Brhs + g * n * r;
 #pragma unroll 4
   for (Index e = rank; e < nn * nn; e += size) a[(e / nn) * ld + e % nn] = Ap[e];
 #pragma unroll 4
@@ -199,7 +206,7 @@ __global__ void cholesky_solve_kernel(const T* __restrict__ A, const T* __restri
     }
     team_sync<kBlockTeam>();
   }
-  T* Xp = X + static_cast<Index>(prob) * nn * rr;
+  T* Xp = X + g * n * r;
   for (Index e = rank; e < nn * rr; e += size) Xp[e] = v[e];
 }
 
@@ -217,10 +224,10 @@ cudaError_t launch_as(const T* A, const T* Brhs, T* X, T* scratch, int B, int n,
 }
 
 // The launch plan comes from kernels/cholesky.py::plan: team is 32 (a warp
-// a problem, per_block problems a block) or the threads of a block (one
-// problem a block); smem_bytes is the block's dynamic shared memory, 0 when
-// the problems live in scratch.  A plan that does not fit its problem is
-// refused with cudaErrorInvalidValue.
+// a problem, per_block problems a block, in shared memory) or the threads
+// of a block (one problem a block); smem_bytes is the block's dynamic
+// shared memory, 0 when the problems live in scratch.  A plan that does
+// not fit its problem is refused with cudaErrorInvalidValue.
 template <typename T>
 int launch(const T* A, const T* Brhs, T* X, T* scratch, int B, int n, int r, int team,
            int per_block, int smem_bytes, void* stream) {
@@ -231,7 +238,7 @@ int launch(const T* A, const T* Brhs, T* X, T* scratch, int B, int n, int r, int
   const bool valid =
       B >= 1 && n >= 1 && r >= 1 && team >= 32 && team % 32 == 0 && team <= 1024 &&
       per_block >= 1 && (!block_team || per_block == 1) && 32 * per_block <= 1024 &&
-      (shared ? smem_bytes >= per_block * per_bytes : smem_bytes == 0);
+      (shared ? smem_bytes >= per_block * per_bytes : block_team && smem_bytes == 0);
   if (!valid) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = block_team ? team : 32 * per_block;
   const int blocks = block_team ? B : (B + per_block - 1) / per_block;
@@ -243,10 +250,8 @@ int launch(const T* A, const T* Brhs, T* X, T* scratch, int B, int n, int r, int
                  : launch_as<T, true, false>(A, Brhs, X, scratch, B, n, r, threads, blocks,
                                              smem_bytes, st);
   } else {
-    err = shared ? launch_as<T, false, true>(A, Brhs, X, scratch, B, n, r, threads, blocks,
-                                             smem_bytes, st)
-                 : launch_as<T, false, false>(A, Brhs, X, scratch, B, n, r, threads, blocks,
-                                              smem_bytes, st);
+    err = launch_as<T, false, true>(A, Brhs, X, scratch, B, n, r, threads, blocks, smem_bytes,
+                                    st);
   }
   return static_cast<int>(err);
 }

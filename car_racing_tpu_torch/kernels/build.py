@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: dict[tuple[str, str], ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -40,21 +40,20 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str, src_dir: Path = CSRC) -> tuple[Path, Path]:
-    src = Path(src_dir) / f"{name}.cu"
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES, src_dir: Path = CSRC) -> dict[str, str]:
-    """Compile every source ``src_dir/{name}.cu`` of ``names`` that is not
-    built yet, all nvcc processes running together.  Returns ptxas' report
-    for each one built."""
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every source in ``names`` that is not built yet, all nvcc
+    processes running together.  Returns ptxas' report for each one built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
     for name in names:
-        src, out = _target(name, src_dir)
+        src, out = _target(name)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -77,18 +76,18 @@ def build_all(names=SOURCES, src_dir: Path = CSRC) -> dict[str, str]:
     return reports
 
 
-def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
-    """The loaded library of ``src_dir/{name}.cu``, built first if needed.
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/{name}.cu``, built first if needed.
     The first call hashes the source; later calls are a dictionary lookup."""
-    lib = _libs.get((name, str(src_dir)))
+    lib = _libs.get(name)
     if lib is None:
-        _, out = _target(name, src_dir)
+        _, out = _target(name)
         if not out.exists():
-            build_all([name], src_dir)
+            build_all([name])
         lib = ctypes.CDLL(str(out))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        _libs[(name, str(src_dir))] = lib
+        _libs[name] = lib
     return lib
 
 

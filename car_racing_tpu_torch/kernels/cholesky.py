@@ -97,10 +97,12 @@ def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def launch(A, rhs, r, what):
+def launch(A, rhs, r, what, p: Plan | None = None):
     """Check ``A (B, n, n)`` and its right-hand sides ``rhs`` (``B * n * r``
     elements, row-major (B, n, r)), launch the kernel (none for an empty
-    batch) and return the solution shaped like ``rhs``."""
+    batch) and return the solution shaped like ``rhs``.  ``p`` replaces
+    :func:`plan`'s launch, to time another team size; the kernel refuses a
+    plan that does not fit the problem."""
     dtype, dev = A.dtype, A.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what} takes float32 or float64, got {dtype}")
@@ -110,7 +112,7 @@ def launch(A, rhs, r, what):
     if not (A.is_contiguous() and rhs.is_contiguous()):
         raise ValueError(f"{what} takes contiguous tensors")
     Bn, n = A.shape[0], A.shape[1]
-    p = plan(n, r, A.element_size())
+    p = p or plan(n, r, A.element_size())
     lib = build.load("cholesky_solve")
     X = torch.empty_like(rhs)
     if Bn == 0:

@@ -46,22 +46,17 @@ def propagate(track, params, xglob, xcurv, u, control_dt=0.1, sub_dt=0.001):
     return _launch(track, params, xglob, xcurv, u, _n_sub(control_dt, sub_dt), sub_dt)
 
 
-def kernel_tables(track, params):
-    """The kernel's segment table ``(3, n_seg)`` and parameter vector ``(11,)``."""
-    par = torch.stack([
-        params.m, params.lf, params.lr, params.Iz, params.Df, params.Cf, params.Bf,
-        params.Dr, params.Cr, params.Br, track.lap_length,
-    ])
-    return track_ops.segment_table(track), par
-
-
 def _launch(track, params, xglob, xcurv, u, n_sub, sub_dt):
     global launches
     dtype, dev = xcurv.dtype, xcurv.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K1 takes float32 or float64, got {dtype}")
     B = xcurv.shape[0]
-    table, par = kernel_tables(track, params)
+    table = track_ops.segment_table(track)
+    par = torch.stack([
+        params.m, params.lf, params.lr, params.Iz, params.Df, params.Cf, params.Bf,
+        params.Dr, params.Cr, params.Br, track.lap_length,
+    ])
     for name, t, shape in (("xglob", xglob, (B, 6)), ("xcurv", xcurv, (B, 6)),
                            ("u", u, (B, 2)), ("track", table, table.shape),
                            ("params", par, (11,))):

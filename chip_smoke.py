@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (car_racing_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--against DIR]
+    python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
 ``car_racing_tpu_torch/csrc/`` into ``build/torch_kernels/``, holds each
@@ -29,17 +29,11 @@ beside its bound:
 9. 256 LMPC QPs (n = 68, 125 inequality and 7 equality rows) through
    ``ipm.solve_qp_batch`` in f64 (K3's path), against the same batch with
    the plain solve, and beside the controllers' dense-LU ``ipm.solve_qp``;
-10. kernel timings at the paths' shapes, beside their bounds;
+10. kernel timings at the paths' shapes, beside their bounds, and K3 with
+    block teams of 128, 256 and 512 threads;
 11. a torch.profiler trace of each path: the device's busy and idle share;
 then the ``kernels`` line, the card's name and power limit, and the ``ok``
 line.
-
-With ``--against DIR``, where DIR holds ``propagate.cu`` and
-``cholesky_solve.cu`` of an earlier tree (the C interface of the kernels
-before the launch plan: ``cholesky_solve_f{32,64}(A, b, x, B, n, stream)``
-and ``cholesky_solve_multi_f{32,64}(A, Brhs, X, B, n, r, stream)``), it also
-builds those and reports, for every input of phases 2-4, whether their
-outputs equal this tree's kernels' bit for bit.
 
 Every phase prints one JSON line.  A failed phase ends the script with exit
 code 1 and no ``ok`` line; without a GPU, or outside a checkout of the
@@ -48,7 +42,7 @@ repository, it exits nonzero before any result.
 
 from __future__ import annotations
 
-import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -168,65 +162,7 @@ def solve_bound_ms(B, n, r, itemsize):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
-def compare_with_earlier(src_dir, checks):
-    """Phase ``against``: build ``propagate.cu`` and ``cholesky_solve.cu``
-    from ``src_dir`` (the C interface described in the module docstring),
-    run them on the inputs of phases 2-4 and report whether each output
-    equals this tree's bit for bit.  A shape the earlier kernel refuses is
-    reported as refused."""
-    import ctypes
-
-    import torch
-
-    from car_racing_tpu_torch.kernels import build, propagate as k1
-
-    t0 = time.perf_counter()
-    build.build_all(build.SOURCES, src_dir)
-    old_k1, old_solve = (build.load(n, src_dir) for n in ("propagate", "cholesky_solve"))
-    emit({"phase": "against_build", "src_dir": str(src_dir),
-          "seconds": time.perf_counter() - t0})
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
-    for kernel, name, inputs, got in checks:
-        f = "f32" if name == "f32" else "f64"
-        stream = torch.cuda.current_stream().cuda_stream
-        if kernel == "K1":
-            tr, bike, xg, xc, u, control_dt = inputs
-            table, par = k1.kernel_tables(tr, bike)
-            outs = (torch.empty_like(xg), torch.empty_like(xc))
-            fn = getattr(old_k1, f"propagate_{f}")
-            fn.argtypes = [ptr, i32] + [ptr] * 6 + [i32, i32, ctypes.c_double, ptr]
-            code = fn(table.data_ptr(), table.shape[1], par.data_ptr(), xg.data_ptr(),
-                      xc.data_ptr(), u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-                      xc.shape[0], round(control_dt / 0.001), 0.001, stream)
-            shape = [xc.shape[0]]
-        else:
-            A, rhs = inputs
-            outs = (torch.empty_like(rhs),)
-            n = A.shape[1]
-            if kernel == "K2":
-                fn = getattr(old_solve, f"cholesky_solve_{f}")
-                fn.argtypes = [ptr] * 3 + [i32, i32, ptr]
-                code = fn(A.data_ptr(), rhs.data_ptr(), outs[0].data_ptr(), A.shape[0], n, stream)
-            else:
-                fn = getattr(old_solve, f"cholesky_solve_multi_{f}")
-                fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
-                code = fn(A.data_ptr(), rhs.data_ptr(), outs[0].data_ptr(), A.shape[0], n,
-                          rhs.shape[2], stream)
-            shape = list(rhs.shape)
-            got = (got,)
-        torch.cuda.synchronize()
-        row = {"phase": "against", "kernel": kernel, "dtype": name, "shape": shape}
-        if code != 0:
-            emit({**row, "refused": old_solve.kernel_error_string(code).decode()})
-            continue
-        equal = all(torch.equal(g.view(bits[g.dtype]), o.view(bits[o.dtype]))
-                    for g, o in zip(got, outs))
-        diff = max(float((g - o).abs().max()) for g, o in zip(got, outs))
-        emit({**row, "bit_equal": equal, "max_abs_diff": diff})
-
-
-def run(against=None):
+def run():
     import torch
 
     from car_racing_tpu_torch.kernels import build, cholesky as k2, cholesky_multi as k3
@@ -276,7 +212,6 @@ def run(against=None):
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
         return t(xg), t(xc), t(u)
 
-    checks = []  # (kernel, dtype name, inputs, outputs) of phases 2-4, for --against
     k1_err = {}
     rng = np.random.default_rng(0)
     for dtype, name in ((f32, "f32"), (f64, "f64")):
@@ -293,7 +228,6 @@ def run(against=None):
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             finite = all(bool(g.isfinite().all()) for g in got)
             k1_err[(name, case)] = err
-            checks.append(("K1", name, (tr, bike, xg, xc, u, control_dt), got))
             emit({"phase": "k1_check", "dtype": name, "case": case, "B": 256,
                   "control_dt": control_dt, "max_abs_err": err, "bound": bound})
             require(finite and err <= bound, f"K1 {name} {case}: max_abs_err {err} > {bound}")
@@ -321,7 +255,6 @@ def run(against=None):
               "max_abs_err": abs_err, "max_rel_err": rel, "bound_rel": bound})
         require(bool(got.isfinite().all()) and rel <= bound,
                 f"{kernel} {name} B={Bn} n={n} r={r}: relative error {rel} > {bound}")
-        checks.append((kernel, name, (A, rhs), got))
 
     bounds = {"f32": 1e-4, "f64": 1e-8}
     k2_err = {}
@@ -655,6 +588,21 @@ def run(against=None):
               "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
               "bound_by": by, "bytes": nbytes, "ops": ops})
     k3_ms, k3_device_ms, k3_plain_ms, k3_lib_ms, k3_bound, k3_by = k3_times[68]
+    # the block team's size: the plan's 256 threads beside 128 and 512, on
+    # the same inputs (each element's operations do not depend on the team,
+    # so the outputs must agree bit for bit)
+    for n, seed in ((68, 3), (100, 4)):
+        A3, B3 = spd_multi(np.random.default_rng(seed), 256, n, 8, f64)
+        base = k2.plan(n, 8, 8)
+        want = k2.launch(A3, B3, 8, "K3", base)
+        for team in (128, 256, 512):
+            p = dataclasses.replace(base, team=team)
+            same = bool(torch.equal(k2.launch(A3, B3, 8, "K3", p), want))
+            emit({"phase": "k3_team", "B": 256, "n": n, "r": 8, "dtype": "f64", "team": team,
+                  "planned": team == base.team, "bit_equal_to_plan": same,
+                  "device_ms": kernel_device_ms(lambda: k2.launch(A3, B3, 8, "K3", p),
+                                                "cholesky_solve_kernel")})
+            require(same, f"K3 n={n}: a team of {team} threads changes the result")
     # one LMPC problem alone: the latency of its 3n dependent steps
     A1, B1 = spd_multi(np.random.default_rng(5), 1, 68, 8, f64)
     emit({"phase": "time_k3", "B": 1, "n": 68, "r": 8, "dtype": "f64",
@@ -673,9 +621,6 @@ def run(against=None):
     for name, fn in paths.items():
         emit({"phase": "profile", "name": name, "wall_ms": walls[name],
               **device_profile(fn, walls[name])})
-
-    if against is not None:
-        compare_with_earlier(against, checks)
 
     emit({"kernels": [
         {"name": "propagate", "route": "cuda",
@@ -703,10 +648,6 @@ def run(against=None):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", metavar="DIR",
-                    help="also compare the kernels bit for bit with those built from DIR")
-    args = ap.parse_args()
     try:
         import torch
     except ImportError as exc:
@@ -722,7 +663,7 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 2
     try:
-        result = run(args.against)
+        result = run()
     except Exception as exc:  # report the failure, print no result
         import traceback
 
