@@ -94,7 +94,8 @@ def lmpc_qp(
     (controllers.py:752-802), over ``z = [U (N*2); lambda (K)]``.
 
     ``A_seq (N, 6, 6)``, ``B_seq (N, 6, 2)``, ``C_seq (N, 6)``: one
-    linearization, shared by the batch.  ``ss_points (Bt, 6, K)``,
+    linearization, shared by the batch, or one per state, ``(Bt, N, ...)``
+    (a learning fleet).  ``ss_points (Bt, 6, K)``,
     ``Qfun_points (Bt, K)``: the selected safe-set points and their
     cost-to-go.  ``u_prev (Bt, 2)``: the input applied last.  The terminal
     state lies in the convex hull of the points (``x_N = SS lambda``,
@@ -103,8 +104,9 @@ def lmpc_qp(
     hold at stages 1..N-1.  ``z_warm (Bt, N*2 + K)`` or, by default, zero
     inputs and ``lambda = 1/K`` start the interior point.
 
-    Returns the QP (H and C shared by the batch as expanded views), z0 and
-    the prediction matrices (phi (Bt, N*6), G (N*6, N*2))."""
+    Returns the QP (H and C shared by the batch as expanded views, unless
+    the linearization is per state), z0 and the prediction matrices
+    (phi (Bt, N*6), G (N*6, N*2) or, per state, (Bt, N*6, N*2))."""
     N = param.num_horizon
     Bt = xcurv.shape[0]
     K = Qfun_points.shape[-1]
@@ -117,13 +119,14 @@ def lmpc_qp(
     H_u, g_u = ocp.quadratic_tracking_cost(phi, G, param.Q, param.R,
                                            x_track.expand(Bt, N, X_DIM), N)
     H_dr, g_dr = ocp.input_rate_cost(param.dR, N, u_prev)
-    H = xcurv.new_zeros(n_z, n_z)
-    H[:n_u, :n_u] = H_u + H_dr
+    lanes = G.shape[:-2]  # () for a shared linearization, else (Bt,)
+    H = xcurv.new_zeros(*lanes, n_z, n_z)
+    H[..., :n_u, :n_u] = H_u + H_dr
     g = torch.cat([g_u + g_dr, Qfun_points], dim=-1)
 
     # terminal equality: x_N(U) - SS lambda = 0 ; sum lambda = 1
     E = xcurv.new_zeros(Bt, X_DIM + 1, n_z)
-    E[:, :X_DIM, :n_u] = G[-X_DIM:]
+    E[:, :X_DIM, :n_u] = G[..., -X_DIM:, :]
     E[:, :X_DIM, n_u:] = -ss_points
     E[:, X_DIM, n_u:] = 1.0
     e = torch.cat([-phi[:, -X_DIM:], xcurv.new_ones(Bt, 1)], dim=-1)
@@ -134,14 +137,15 @@ def lmpc_qp(
     u_max = torch.stack([sys_param.delta_max, sys_param.a_max])
     C_u, d_u = ocp.input_box_rows(N, U_DIM, u_min, u_max, n_z)
     sel = torch.arange(N - 1, device=dev) * X_DIM
-    G_vx = xcurv.new_zeros(N - 1, n_z)
-    G_vx[:, :n_u] = G[sel]
-    G_ey = xcurv.new_zeros(N - 1, n_z)
-    G_ey[:, :n_u] = G[sel + 5]
+    G_vx = xcurv.new_zeros(*lanes, N - 1, n_z)
+    G_vx[..., :n_u] = G[..., sel, :]
+    G_ey = xcurv.new_zeros(*lanes, N - 1, n_z)
+    G_ey[..., :n_u] = G[..., sel + 5, :]
     p_vx, p_ey = phi[:, sel], phi[:, sel + 5]
     C_lam = xcurv.new_zeros(K, n_z)
     C_lam[:, n_u:] = torch.eye(K, dtype=dtype, device=dev)
-    C = torch.cat([C_u, -G_vx, G_ey, -G_ey, C_lam], dim=0)
+    per_lane = lambda rows: rows.expand(*lanes, *rows.shape)
+    C = torch.cat([per_lane(C_u), -G_vx, G_ey, -G_ey, per_lane(C_lam)], dim=-2)
     d = torch.cat([
         d_u.expand(Bt, -1),
         p_vx - sys_param.v_max,
@@ -150,7 +154,7 @@ def lmpc_qp(
         xcurv.new_zeros(Bt, K),
     ], dim=-1)
 
-    qp = ipm.QP(H=H.expand(Bt, n_z, n_z), g=g, C=C.expand(Bt, *C.shape), d=d, E=E, e=e)
+    qp = ipm.QP(H=H.expand(Bt, n_z, n_z), g=g, C=C.expand(Bt, *C.shape[-2:]), d=d, E=E, e=e)
     if z_warm is None:
         z_warm = xcurv.new_zeros(Bt, n_z)
         z_warm[:, n_u:] = 1.0 / K

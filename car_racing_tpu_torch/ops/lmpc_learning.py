@@ -3,11 +3,13 @@
 
 The JAX package ``vmap``s the per-stage regression over the horizon; here
 the horizon is a leading batch dimension of every function.  Safe sets are
-sentinel-padded arrays ``(P, 6)`` whose unused rows hold 1e4.
+sentinel-padded arrays ``(P, 6)`` whose unused rows hold 1e4; a learning
+fleet gives each lane its own, with leading lane dimensions ``(..., P, 6)``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.constants import U_DIM, X_DIM
@@ -34,18 +36,36 @@ def compute_cost(xcurv: torch.Tensor, lap_length) -> torch.Tensor:
     return torch.cat([cost, xcurv.new_zeros(1)])
 
 
+def compute_cost_host(xcurv, lap_length) -> np.ndarray:
+    """Numpy :func:`compute_cost` for the host's lap-close glue, as a loop
+    (lmpc_learning.py:54-71).  xcurv (T, 6); returns (T,)."""
+    xcurv = np.asarray(xcurv)
+    T = xcurv.shape[0]
+    costs = np.zeros(T)
+    nxt = -1.0
+    for k in range(T - 2, -1, -1):
+        nxt = nxt + 1.0 if xcurv[k, 4] < lap_length else 0.0
+        costs[k] = nxt
+    return costs
+
+
 def select_points(ss_iter, qfun_iter, xcurv, num_points: int, shift: int = 0):
     """The ``num_points`` safe-set points from the one nearest (1-norm) to
     ``xcurv (..., 6)`` on; the first nearest wins a tie (``jnp.argmin``),
     and the window start is clipped into the array.
 
-    ss_iter (P, 6), qfun_iter (P,).  Returns points (..., 6, num_points)
-    and their cost-to-go (..., num_points)."""
-    P = ss_iter.shape[0]
+    ss_iter (P, 6) and qfun_iter (P,) shared by the batch, or one per lane,
+    (..., P, 6) and (..., P), with lane dimensions leading ``xcurv``'s.
+    Returns points (..., 6, num_points) and their cost-to-go
+    (..., num_points)."""
+    P = ss_iter.shape[-2]
     norm = (ss_iter - xcurv.unsqueeze(-2)).abs().sum(dim=-1)  # (..., P)
     start = (torch.argmin(norm, dim=-1) + shift).clamp(0, P - num_points)
     idx = start.unsqueeze(-1) + torch.arange(num_points, device=ss_iter.device)
-    return ss_iter[idx].transpose(-1, -2), qfun_iter[idx]
+    if ss_iter.dim() == 2:
+        return ss_iter[idx].transpose(-1, -2), qfun_iter[idx]
+    pts = torch.take_along_dim(ss_iter, idx.unsqueeze(-1), dim=-2)
+    return pts.transpose(-1, -2), torch.take_along_dim(qfun_iter, idx, dim=-1)
 
 
 def _kernel_weights(data_zu, valid, x_lin, max_pts: int):
@@ -120,21 +140,26 @@ def regression_and_linearization(x_lin_state, u_lin, ss_data, u_data, valid, cur
     Rows 0..2 (vx, vy, wz) are kernel-weighted local least squares on the
     lap data ``ss_data (L, P, 6)``, ``u_data (L, P, 2)``, ``valid (L, P)``
     (rows with a successor sample); rows 3..5 are the exact kinematic
-    Jacobian at curvature ``curv (...,)``.  Returns A (..., 6, 6),
-    B (..., 6, 2), C (..., 6)."""
-    L, P, _ = ss_data.shape
+    Jacobian at curvature ``curv (...,)``.  A fleet gives each lane its own
+    data, ``(*lanes, L, P, ...)``, with ``lanes`` leading ``x_lin_state``'s
+    batch.  Returns A (..., 6, 6), B (..., 6, 2), C (..., 6)."""
+    *lanes, L, P, _ = ss_data.shape
     batch = x_lin_state.shape[:-1]
     dtype, dev = x_lin_state.dtype, x_lin_state.device
     x_lin = torch.cat([x_lin_state[..., :3], u_lin], dim=-1)
 
-    flat_states = ss_data.reshape(L * P, X_DIM)
-    flat_u = u_data.reshape(L * P, U_DIM)
-    data_zu = torch.cat([flat_states[:, :3], flat_u], dim=1)
-    idx, w = _kernel_weights(data_zu, valid.reshape(L * P), x_lin, max_pts)
+    # each lane's rows flattened, with a unit dimension for every batch
+    # dimension past the lanes (the gathers below broadcast over them)
+    ones = [1] * (len(batch) - len(lanes))
+    flat_states = ss_data.reshape(*lanes, *ones, L * P, X_DIM)
+    flat_u = u_data.reshape(*lanes, *ones, L * P, U_DIM)
+    data_zu = torch.cat([flat_states[..., :3], flat_u], dim=-1)
+    idx, w = _kernel_weights(data_zu, valid.reshape(*lanes, *ones, L * P), x_lin, max_pts)
     # successor rows: the flat layout keeps each lap's order, and the
     # validity mask already excludes lap ends
     succ = (idx + 1).clamp(0, L * P - 1)
-    states, inputs, nxt = flat_states[idx], flat_u[idx], flat_states[succ]
+    rows = lambda data, i: torch.take_along_dim(data, i.unsqueeze(-1), dim=-2)
+    states, inputs, nxt = rows(flat_states, idx), rows(flat_u, idx), rows(flat_states, succ)
 
     # the vx channel regresses on [vx, vy, wz, a], vy and wz on [vx, vy, wz, delta]
     Z_vx = torch.cat([states[..., :3], inputs[..., 1:2]], dim=-1)

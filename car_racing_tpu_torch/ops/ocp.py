@@ -4,7 +4,9 @@ Receding-horizon problems over LTI dynamics ``x_{k+1} = A x_k + B u_k`` are
 condensed onto the input sequence ``U = [u_0; ...; u_{N-1}]``:
 ``X = [x_1; ...; x_N] = phi(x_0) + G U``.  ``G`` does not depend on ``x_0``,
 so it is built once and shared by a batch of initial states; ``phi`` and
-the constraint offsets carry the batch dimension.
+the constraint offsets carry the batch dimension.  Time-varying dynamics
+may also differ per lane (a learning fleet): then ``G`` carries the lane
+dimensions too.
 """
 
 from __future__ import annotations
@@ -19,31 +21,37 @@ def prediction_matrices(A_seq, B_seq, C_seq, x0):
 
     A_seq (N, n, n), B_seq (N, n, m), C_seq (N, n), x0 (..., n).
     Returns phi (..., N, n) and G (N, n, N, m), with
-    ``x_k = phi[k-1] + sum_j G[k-1, :, j, :] @ u_j``.
+    ``x_k = phi[k-1] + sum_j G[k-1, :, j, :] @ u_j``.  Sequences with
+    leading lane dimensions, A_seq (*lanes, N, n, n) and so on, give each
+    lane its own G (*lanes, N, n, N, m); ``lanes`` lead x0's batch.
     """
-    N, n, m = B_seq.shape
+    *lanes, N, n, m = B_seq.shape
     phis = []
     x = x0
     for k in range(N):
-        x = x @ A_seq[k].mT + C_seq[k]
+        if lanes:
+            x = (x.unsqueeze(-2) @ A_seq[..., k, :, :].mT).squeeze(-2) + C_seq[..., k, :]
+        else:
+            x = x @ A_seq[k].mT + C_seq[k]
         phis.append(x)
-    G = torch.zeros((N, n, N, m), dtype=B_seq.dtype, device=B_seq.device)
+    G = torch.zeros((*lanes, N, n, N, m), dtype=B_seq.dtype, device=B_seq.device)
     for j in range(N):
-        S = B_seq[j]
-        G[j, :, j] = S
+        S = B_seq[..., j, :, :]
+        G[..., j, :, j, :] = S
         for k in range(j + 1, N):
-            S = A_seq[k] @ S
-            G[k, :, j] = S
+            S = A_seq[..., k, :, :] @ S
+            G[..., k, :, j, :] = S
     return torch.stack(phis, dim=-2), G
 
 
 def condense(A_seq, B_seq, C_seq, x0):
     """Flattened TV prediction matrices: ``X (..., N*n) = phi + U @ G.mT``.
 
-    Returns (phi (..., N*n), G (N*n, N*m))."""
+    Returns (phi (..., N*n), G (N*n, N*m)), or G (*lanes, N*n, N*m) for
+    per-lane sequences."""
     phi, G = prediction_matrices(A_seq, B_seq, C_seq, x0)
-    N, n, _, m = G.shape
-    return phi.reshape(*phi.shape[:-2], N * n), G.reshape(N * n, N * m)
+    *lanes, N, n, _, m = G.shape
+    return phi.reshape(*phi.shape[:-2], N * n), G.reshape(*lanes, N * n, N * m)
 
 
 def condense_lti(A, B, N: int, x0):
@@ -82,7 +90,8 @@ def quadratic_tracking_cost(phi, G, Q, R, x_targets, N):
     """H, g of ``sum_k (x_k - xt_k)' Q (x_k - xt_k) + u_k' R u_k`` over U.
 
     phi (..., N*n), G (N*n, N*m), x_targets (..., N, n).  H (N*m, N*m) is
-    shared by the batch; g is (..., N*m).
+    shared by the batch; g is (..., N*m).  A per-lane G (..., N*n, N*m)
+    gives a per-lane H (..., N*m, N*m).
     """
     n = Q.shape[0]
     eye = torch.eye(N, dtype=Q.dtype, device=Q.device)
@@ -90,7 +99,7 @@ def quadratic_tracking_cost(phi, G, Q, R, x_targets, N):
     Rbar = torch.kron(eye, R)
     dx = phi - x_targets.reshape(*x_targets.shape[:-2], N * n)
     H = 2.0 * (G.mT @ Qbar @ G + Rbar)
-    g = 2.0 * ((dx @ Qbar.mT) @ G)
+    g = 2.0 * _vecmat(dx @ Qbar.mT, G)
     return H, g
 
 
@@ -145,7 +154,16 @@ def stack_rows(*pairs):
 
 
 def unpack_states(phi, G, U, x0):
-    """State trajectory (..., N+1, n) from flat inputs U (..., N*m)."""
+    """State trajectory (..., N+1, n) from flat inputs U (..., N*m); G
+    shared (N*n, N*m) or per lane (..., N*n, N*m)."""
     N = phi.shape[-1] // X_DIM
-    X = (phi + U @ G.mT).reshape(*phi.shape[:-1], N, X_DIM)
+    X = (phi + _vecmat(U, G.mT)).reshape(*phi.shape[:-1], N, X_DIM)
     return torch.cat([x0.unsqueeze(-2), X], dim=-2)
+
+
+def _vecmat(v, M):
+    """``v (..., a) @ M``: M (a, b) shared by the batch, or one per lane
+    (..., a, b)."""
+    if M.dim() == 2:
+        return v @ M
+    return (v.unsqueeze(-2) @ M).squeeze(-2)

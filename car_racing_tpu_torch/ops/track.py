@@ -1,10 +1,11 @@
-"""Closed-track geometry (car_racing_tpu/ops/track.py:36-167).
+"""Closed-track geometry (car_racing_tpu/ops/track.py:36-236).
 
 A track spec is rows of ``[segment_length, radius]`` (radius 0 => straight,
 signed radius => arc, positive = left turn).  :func:`build_track` walks the
 spec on the host in float64, exactly as the JAX package does, and stores the
-per-segment arrays as tensors.  The Frenet/global conversions are not ported
-yet.
+per-segment arrays as tensors.  The Frenet-to-global conversions take any
+leading batch dimensions, which stands in for the JAX package's ``vmap``ped
+``*_batch`` variants.
 """
 
 from __future__ import annotations
@@ -132,3 +133,69 @@ def curvature(track: Track, s: torch.Tensor) -> torch.Tensor:
     inside = (s >= track.s0) & (s < track.s0 + track.seg_len + _S_TOL)
     # torch.argmax returns the first maximal index; it takes no bools
     return track.curv[torch.argmax(inside.to(torch.uint8), dim=-1)]
+
+
+def wrap_angle(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angle to (-pi, pi]."""
+    return torch.atan2(torch.sin(angle), torch.cos(angle))
+
+
+def _segment_index(track: Track, s: torch.Tensor) -> torch.Tensor:
+    """The first segment holding the wrapped ``s`` (segment 0 when none
+    does), as :func:`curvature` picks it."""
+    inside = (s[..., None] >= track.s0) & (s[..., None] < track.s0 + track.seg_len + _S_TOL)
+    return torch.argmax(inside.to(torch.uint8), dim=-1)
+
+
+def _arc_geometry(track: Track):
+    """Per-segment arc quantities with straight-segment guards."""
+    is_arc = track.curv != 0.0
+    safe_curv = torch.where(is_arc, track.curv, 1.0)
+    R = torch.abs(1.0 / safe_curv)
+    direction = torch.sign(safe_curv)
+    theta0 = torch.atan2(track.start_xy[:, 1] - track.center_xy[:, 1],
+                         track.start_xy[:, 0] - track.center_xy[:, 0])
+    return is_arc, R, direction, theta0
+
+
+def frenet_to_global_xy(track: Track, s: torch.Tensor, ey: torch.Tensor) -> torch.Tensor:
+    """(s, ey) -> (X, Y), shape (..., 2).
+
+    The JAX package sums the candidates of every segment under a one-hot
+    mask; the other segments add exact zeros, so taking the picked
+    segment's candidate gives the same values."""
+    s = wrap_s(track, s)
+    i = _segment_index(track, s)
+    ds = s - track.s0[i]
+    ey = ey[..., None]
+
+    psi0 = track.psi_start[i]
+    n_hat = torch.stack([torch.cos(psi0 + torch.pi / 2), torch.sin(psi0 + torch.pi / 2)], dim=-1)
+    start = track.start_xy[i]
+    straight = start + (ds / track.seg_len[i])[..., None] * (track.end_xy[i] - start) + ey * n_hat
+
+    is_arc, R, direction, theta0 = (a[i] for a in _arc_geometry(track))
+    theta = theta0 + direction * (ds / R)
+    radial = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+    arc = track.center_xy[i] + (R[..., None] - direction[..., None] * ey) * radial
+    return torch.where(is_arc[..., None], arc, straight)
+
+
+def frenet_to_global_psi(track: Track, s: torch.Tensor, ey: torch.Tensor) -> torch.Tensor:
+    """Centerline tangent angle at ``s``, wrapped to (-pi, pi]; ``ey`` is
+    not read (the JAX signature's)."""
+    s = wrap_s(track, s)
+    i = _segment_index(track, s)
+    is_arc, R, direction, theta0 = (a[i] for a in _arc_geometry(track))
+    theta = theta0 + direction * ((s - track.s0[i]) / R)
+    psi = torch.where(is_arc, theta + direction * torch.pi / 2, track.psi_start[i])
+    return wrap_angle(psi)
+
+
+def frenet_to_global_state(track: Track, xcurv: torch.Tensor) -> torch.Tensor:
+    """``[vx, vy, wz, epsi, s, ey]`` -> ``[vx, vy, wz, psi, X, Y]`` with psi
+    the tangent plus epsi; xcurv (..., 6)."""
+    s, ey = xcurv[..., 4], xcurv[..., 5]
+    xy = frenet_to_global_xy(track, s, ey)
+    psi = frenet_to_global_psi(track, s, ey) + xcurv[..., 3]
+    return torch.cat([xcurv[..., :3], psi[..., None], xy], dim=-1)

@@ -1,10 +1,11 @@
-"""Closed-loop rollouts (car_racing_tpu/racing/fused.py:31-75, 261-411,
-1032-1042).
+"""Closed-loop rollouts (car_racing_tpu/racing/fused.py:31-75, 261-604,
+1003-1042).
 
 The JAX package fuses the receding-horizon loop into one ``lax.scan`` and
 ``vmap``s it over a fleet.  Here the loop is a Python loop over control
 steps, and the fleet is the batch dimension of every call inside it: one
-MPC-LTI solve for all lanes, then one launch of the integrator kernel K1.
+MPC-LTI or LMPC solve for all lanes, then one launch of the integrator
+kernel K1.
 """
 
 from __future__ import annotations
@@ -173,3 +174,217 @@ def rollout_lmpc_lap(
     xcurvs.append(xcurv)
     dones = torch.tensor(dones, device=xcurv0.device)
     return torch.stack(xcurvs), torch.stack(us), dones, int((~dones).sum())
+
+
+def promote(lap_ss, lap_u, T, xcurv_cross):
+    """The safe-set column of the lap just driven, with host
+    ``add_trajectory`` semantics (fused.py:493-504): rows ``0..T-1`` the
+    lap's states and inputs from the clean per-lap buffer ``lap_ss (..., P,
+    6)``, ``lap_u (..., P, 2)``, row ``T`` (clipped into the column) the
+    crossing state ``xcurv_cross (..., 6)`` with s un-wrapped, sentinels
+    beyond, and Qfun ``(T-1) - arange(P)``.
+
+    The buffer, not the ``add_point`` appendix, is the source: the appendix
+    holds ``x + L``, and un-shifting it re-rounds s by an ulp, which the JAX
+    package measured as 1e-5 m of drift over three laps.  T (...) int.
+    Returns (ss (..., P, 6), u (..., P, 2), qfun (..., P))."""
+    P = lap_ss.shape[-2]
+    rows = torch.arange(P, device=lap_ss.device)
+    in_lap = (rows < T.unsqueeze(-1)).unsqueeze(-1)
+    cross_row = (rows == T.clamp(0, P - 1).unsqueeze(-1)).unsqueeze(-1)
+    ss = torch.where(cross_row, xcurv_cross.unsqueeze(-2),
+                     torch.where(in_lap, lap_ss, lmpc_learning.SENTINEL))
+    u = torch.where(in_lap, lap_u, lmpc_learning.SENTINEL)
+    q = (T.unsqueeze(-1) - 1 - rows).to(lap_ss.dtype)
+    return ss, u, q
+
+
+def _lanes(mask, new, old):
+    """``new`` where the lane's ``mask (B,)`` is set, else ``old``."""
+    return torch.where(mask.view(-1, *[1] * (new.dim() - 1)), new, old)
+
+
+def rollout_lmpc_learning_batch(
+    track,
+    bike_params,
+    lmpc_param,
+    sys_param,
+    xcurv0_batch,
+    xglob0_batch,
+    ss_prev,
+    qfun_prev,
+    u_prev_lap,
+    t_prev: int,
+    ss_prev2,
+    qfun_prev2,
+    u_prev2_lap,
+    t_prev2: int,
+    lin_points0,
+    lin_input0,
+    n_laps: int = 3,
+    n_steps: int = 600,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    solves: list | None = None,
+):
+    """Multi-lap LMPC learning of a fleet of ``B`` vehicles from the starts
+    ``xcurv0_batch (B, 6)``, ``xglob0_batch (B, 6)`` and shared seed
+    columns (fused.py:414-604, 1003-1029).
+
+    ``ss_prev (P, 6)``, ``qfun_prev (P,)``, ``u_prev_lap (P, 2)`` and
+    ``t_prev`` are lap iter-1's column and step count, ``*_prev2`` lap
+    iter-2's; ``lin_points0 (N+1, 6)`` and ``lin_input0 (N, 2)`` the first
+    linearization.  Each lane carries its own copy of both columns, their
+    inputs, Qfun and lap lengths, a clean per-lap buffer, its
+    linearization, input-rate anchor and warm start, and its step within
+    the lap and lap count.
+
+    Every step, for all lanes at once: the local regression over each
+    lane's two columns (validity ``rows < t - 1``), the safe-set selection,
+    the LMPC QP (one dense-LU interior point for the batch), one control
+    period through K1, and ``add_point``: the state, with s one lap on, is
+    written into column A at ``clip(tA + k_in_lap + 1, 0, P-1)``, the state
+    and input into the per-lap buffer.  At a lane's crossing its lap is
+    promoted (:func:`promote`) into column A, the old column A (with its
+    appendix) is demoted to column B, and s wraps.  After ``n_laps``
+    crossings the lane's carry freezes, but as in the JAX scan its column A
+    and buffer still take the step's writes, which the next solves read.
+
+    Every column must hold the appendix of each lap it absorbs: ``P >=
+    t_prev + lap_steps + 1`` (``run_learning_protocol`` asserts it).  A
+    single lane goes through the shared-linearization calls that
+    :func:`rollout_lmpc_lap` makes, so its first lap is that lap's
+    arithmetic bit for bit (batched products and LU may round otherwise).
+    If ``solves`` is a list, each step's ``ipm.IPMSolution`` is appended.
+
+    Returns (xcurv (B, n_steps+1, 6) with s wrapped per lap, u (B, n_steps,
+    2), lap_steps (B, n_laps) int32, laps_done (B,) int32)."""
+    N = lmpc_param.num_horizon
+    K = lmpc_param.num_ss_points
+    K_per = K // lmpc_param.num_ss_iter
+    Bn = xcurv0_batch.shape[0]
+    dtype, dev = xcurv0_batch.dtype, xcurv0_batch.device
+    L = track.lap_length.to(dtype)
+    W = track.width.to(dtype)
+    P = ss_prev.shape[0]
+    n_u = N * U_DIM
+    dt = torch.tensor(control_dt, dtype=dtype, device=dev)
+    rows = torch.arange(P, device=dev)
+    lanes = torch.arange(Bn, device=dev)
+    lapshift = xcurv0_batch.new_zeros(X_DIM)
+    lapshift[4] = L
+    # one lane: drop the lane dimension of what the linearization reads
+    shared = (lambda t: t[0]) if Bn == 1 else (lambda t: t)
+
+    per_lane = lambda t: t.expand(Bn, *t.shape).clone()
+    ssA, uA, qA = per_lane(ss_prev), per_lane(u_prev_lap), per_lane(qfun_prev)
+    ssB, uB, qB = per_lane(ss_prev2), per_lane(u_prev2_lap), per_lane(qfun_prev2)
+    tA = torch.full((Bn,), int(t_prev), device=dev)
+    tB = torch.full((Bn,), int(t_prev2), device=dev)
+    lap_ss = xcurv0_batch.new_full((Bn, P, X_DIM), lmpc_learning.SENTINEL)
+    lap_u = xcurv0_batch.new_full((Bn, P, U_DIM), lmpc_learning.SENTINEL)
+    lin_points, lin_input = per_lane(lin_points0), per_lane(lin_input0)
+    u_prev = xcurv0_batch.new_zeros(Bn, U_DIM)
+    z_warm = xcurv0_batch.new_zeros(Bn, n_u + K)  # lmpc_qp's default
+    z_warm[:, n_u:] = 1.0 / K
+    k_in_lap = torch.zeros(Bn, dtype=torch.long, device=dev)
+    lap_idx = torch.zeros(Bn, dtype=torch.long, device=dev)
+    xcurv, xglob = xcurv0_batch, xglob0_batch
+    xcurvs, us, lap_ids, dones = [], [], [], []
+    for _ in range(n_steps):
+        done = lap_idx >= n_laps
+        x = xcurv.clone()
+        x[:, 4] = torch.remainder(xcurv[:, 4], L)
+        curvs = track_ops.curvature(track, torch.remainder(lin_points[:, :N, 4], L))
+        valid = torch.stack([rows < tB[:, None] - 1, rows < tA[:, None] - 1], dim=1)
+        A_tv, B_tv, C_tv = lmpc_learning.estimate_abc_horizon(
+            shared(lin_points[:, :N]), shared(lin_input[:, :N]),
+            shared(torch.stack([ssB, ssA], dim=1)), shared(torch.stack([uB, uA], dim=1)),
+            shared(valid), shared(curvs), dt)
+        pts1, q1 = lmpc_learning.select_points(shared(ssA), shared(qA), x, K_per, lmpc_param.shift)
+        pts2, q2 = lmpc_learning.select_points(shared(ssB), shared(qB), x, K_per, lmpc_param.shift)
+        U, X, sol = controllers.lmpc(
+            x, lmpc_param, A_tv, B_tv, C_tv, torch.cat([pts1, pts2], dim=-1),
+            torch.cat([q1, q2], dim=-1), u_prev, sys_param, W, z_warm=z_warm)
+        if solves is not None:
+            solves.append(sol)
+        u = U[:, 0].contiguous()
+        xglob_next, xcurv_next = dynamics.propagate(
+            track, bike_params, xglob, xcurv, u, control_dt=control_dt, sub_dt=sub_dt)
+        xcurvs.append(xcurv)
+        us.append(u)
+        lap_ids.append(lap_idx)
+        dones.append(done)
+
+        # add_point into column A, and the clean per-lap buffer
+        idx = (tA + k_in_lap + 1).clamp(0, P - 1)
+        ssA[lanes, idx] = x + lapshift
+        uA[lanes, idx] = u
+        kidx = k_in_lap.clamp(0, P - 1)
+        lap_ss[lanes, kidx] = x
+        lap_u[lanes, kidx] = u
+
+        # a crossing promotes the lap into column A and demotes A to B
+        crossing = (xcurv_next[:, 4] >= L) & ~done
+        T = k_in_lap + 1
+        ss_new, u_new, q_new = promote(lap_ss, lap_u, T, xcurv_next)
+        sel = lambda new, old: _lanes(crossing, new, old)
+        ssB2, uB2, qB2, tB2 = sel(ssA, ssB), sel(uA, uB), sel(qA, qB), sel(tA, tB)
+        ssA2, uA2, qA2, tA2 = sel(ss_new, ssA), sel(u_new, uA), sel(q_new, qA), sel(T, tA)
+        xcurv_next = sel(xcurv_next - lapshift, xcurv_next)
+        k_in_lap2 = sel(torch.zeros_like(k_in_lap), k_in_lap + 1)
+        lap_idx2 = lap_idx + crossing.long()
+
+        lin_points_next = torch.cat([X[:, 1:], X[:, -1:]], dim=1)
+        lin_input_next = torch.cat([U[:, 1:], U[:, -1:]], dim=1)
+        z_warm_next = torch.cat([U[:, 1:].reshape(Bn, -1), U[:, -1], sol.z[:, n_u:]], dim=-1)
+
+        live = lambda new, old: _lanes(~done, new, old)  # a finished lane stays frozen
+        xcurv, xglob = live(xcurv_next, xcurv), live(xglob_next, xglob)
+        ssA, uA, qA, tA = live(ssA2, ssA), live(uA2, uA), live(qA2, qA), live(tA2, tA)
+        ssB, uB, qB, tB = live(ssB2, ssB), live(uB2, uB), live(qB2, qB), live(tB2, tB)
+        lin_points, lin_input = live(lin_points_next, lin_points), live(lin_input_next, lin_input)
+        u_prev, z_warm = live(u, u_prev), live(z_warm_next, z_warm)
+        k_in_lap, lap_idx = live(k_in_lap2, k_in_lap), live(lap_idx2, lap_idx)
+    xcurvs.append(xcurv)
+    lap_ids, active = torch.stack(lap_ids, dim=1), ~torch.stack(dones, dim=1)
+    lap_steps = torch.stack([(active & (lap_ids == j)).sum(dim=1) for j in range(n_laps)], dim=1)
+    return (torch.stack(xcurvs, dim=1), torch.stack(us, dim=1), lap_steps.to(torch.int32),
+            lap_idx.to(torch.int32))
+
+
+def rollout_lmpc_learning(
+    track,
+    bike_params,
+    lmpc_param,
+    sys_param,
+    xcurv0,
+    xglob0,
+    ss_prev,
+    qfun_prev,
+    u_prev_lap,
+    t_prev: int,
+    ss_prev2,
+    qfun_prev2,
+    u_prev2_lap,
+    t_prev2: int,
+    lin_points0,
+    lin_input0,
+    n_laps: int = 3,
+    n_steps: int = 600,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    solves: list | None = None,
+):
+    """Multi-lap LMPC learning of one vehicle from ``xcurv0 (6,)``: the
+    whole learning curve in one loop, each lap promoted into the safe set
+    at its crossing (:func:`rollout_lmpc_learning_batch`, a batch of one).
+
+    Returns (xcurv (n_steps+1, 6) with s wrapped per lap, u (n_steps, 2),
+    lap_steps (n_laps,) int32, the learning curve, and laps_done () int32)."""
+    xc, us, lap_steps, laps_done = rollout_lmpc_learning_batch(
+        track, bike_params, lmpc_param, sys_param, xcurv0[None], xglob0[None],
+        ss_prev, qfun_prev, u_prev_lap, t_prev, ss_prev2, qfun_prev2, u_prev2_lap, t_prev2,
+        lin_points0, lin_input0, n_laps=n_laps, n_steps=n_steps, control_dt=control_dt,
+        sub_dt=sub_dt, solves=solves)
+    return xc[0], us[0], lap_steps[0], laps_done[0]

@@ -23,15 +23,20 @@ beside its bound:
    them (``data/goldens/lmpc_lap_spread.json``), and the l_shape lap timed,
    per step of a 250-step call and per step of a call of the lap's own
    length, in f64 and in f32 (the f32 lap held to the nudged JAX f32 laps);
-7. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
-8. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
+7. the LMPC learning protocol in f64, through K1: the PID loop against its
+   golden (``pid_lap``); three learning laps from the l_shape seed, the
+   first against phase 6's lap, the others against the nudged JAX runs
+   (``learning``); ``run_learning_protocol`` from a standing start
+   (``protocol``); and a learning fleet of 64 lanes (``learning_fleet``);
+8. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
+9. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
    with the plain solve;
-9. 256 LMPC QPs (n = 68, 125 inequality and 7 equality rows) through
-   ``ipm.solve_qp_batch`` in f64 (K3's path), against the same batch with
-   the plain solve, and beside the controllers' dense-LU ``ipm.solve_qp``;
-10. kernel timings at the paths' shapes, beside their bounds, and K3 with
+10. 256 LMPC QPs (n = 68, 125 inequality and 7 equality rows) through
+    ``ipm.solve_qp_batch`` in f64 (K3's path), against the same batch with
+    the plain solve, and beside the controllers' dense-LU ``ipm.solve_qp``;
+11. kernel timings at the paths' shapes, beside their bounds, and K3 with
     block teams of 128, 256 and 512 threads;
-11. a torch.profiler trace of each path: the device's busy and idle share;
+12. a torch.profiler trace of each path: the device's busy and idle share;
 then the ``kernels`` line, the card's name and power limit, and the ``ok``
 line.
 
@@ -54,6 +59,18 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
 LMPC_LAPS = (("l_shape", 250), ("goggle", 350), ("m_shape", 700), ("ellipse", 400))
+LEARN_STEPS = 480  # the longest nudged JAX learning run takes 230 + 144 + 102 = 476
+# a learning fleet lane against its single-lane run: the first step (the
+# same data, rounding apart), then up to its first capped solve, as far as
+# the JAX package's own fleet lanes and single-lane runs agree (up to
+# 6.7e-6: l_shape/jax_self_distance in data/goldens/lmpc_lap_spread.json)
+FIRST_STEP_ATOL, WHOLE_RUN_ATOL = 1e-8, 1e-4
+# lanes of the 64-lane learning fleet allowed off the track (|ey| > width)
+# over their lap: the JAX package's own first laps leave it too, 2 of 216
+# (three 64-lane fleets and 24 nudged runs: l_shape/jax_learning_fleet and
+# l_shape/jax_learning in the same file); at that rate more than 3 of 64
+# has a probability under 1 %
+FLEET_OFF_TRACK_LANES = 3
 # K1's arithmetic per vehicle and substep, each libm call counted as one
 # operation and the segment search at its least (one pair of compares):
 # 3 (wrap) + 2 (search) + 8 (slip angles) + 12 (tire forces) + 13 (dvx, dvy,
@@ -162,6 +179,218 @@ def solve_bound_ms(B, n, r, itemsize):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def first_capped(its):
+    """Index of the first solve that stopped at the 40-iteration cap, else
+    the number of solves."""
+    capped = np.nonzero(np.asarray(its) >= 40)[0]
+    return int(capped[0]) if len(capped) else len(its)
+
+
+def learning_phases(dev, setup, lap_spread, golden, l_lap):
+    """Phase 7: the LMPC learning protocol on the card, f64, each stage
+    through the entry point a user calls, every control step one K1 launch.
+    ``golden`` is the l_shape LMPC lap's golden and ``l_lap`` phase 6's
+    l_shape lap on the card (xcurv, u, lap steps).  Returns the learning
+    fleet's rollout for the profile phase."""
+    import torch
+
+    from car_racing_tpu_torch.kernels import propagate as k1
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused, protocol
+    from car_racing_tpu_torch.utils import fixtures, params
+
+    f64 = torch.float64
+    kw = dict(device=dev, dtype=f64)
+
+    def timed(fn):
+        """``fn()`` and its milliseconds between CUDA events (calls may nest)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # ---- pid_lap: the protocol's first stage at the golden's scenario ----
+    tr8, bike8, _, _, xtarget = setup("l_shape", 0.8, f64)
+    zeros = torch.zeros(6, **kw)
+    golden_pid = np.loadtxt("data/goldens/pid_l_shape.csv", delimiter=",")
+    k1.launches = 0
+    (xc, us), ms = timed(lambda: protocol.rollout_pid(tr8, bike8, xtarget, zeros, zeros,
+                                                      n_steps=200))
+    pid_k1 = k1.launches
+    xc = xc.cpu().numpy()
+    err = float(np.abs(xc[1:] - golden_pid).max()) if xc.shape == (201, 6) else float("nan")
+    emit({"phase": "pid_lap", "dtype": "f64", "n_steps": 200, "ms_per_step": ms / 200,
+          "max_abs_err_rows_1_200": err, "atol": 1e-8, "k1_launches": pid_k1})
+    require(xc.shape == (201, 6) and np.isfinite(xc).all() and bool(us.isfinite().all()),
+            f"pid_lap: shape {xc.shape} or non-finite values")
+    require(err <= 1e-8, f"pid_lap: rows 1..200 off the golden by {err} > 1e-8")
+    require(pid_k1 == 200, f"pid_lap: K1 launched {pid_k1} times, not 200")
+
+    # ---- learning: three laps from the l_shape seed --------------------------
+    sd = fixtures.load_lmpc_seed("l_shape", **kw)
+    tr = track.load_track("l_shape", width=1.0, **kw)
+    L = float(tr.lap_length)
+    lmpc_args = (tr, dynamics.BicycleParams.default(**kw), params.LMPCParam.default(**kw),
+                 params.SystemParam.default(**kw))
+    columns = (sd["ss1"], sd["q1"], sd["u1"], sd["counter"], sd["ss2"], sd["q2"], sd["u2"],
+               sd["pid_lap_steps"], sd["lin_points0"], sd["lin_input0"])
+    solves = []
+    k1.launches = 0
+    (xc, us, steps, done), ms = timed(lambda: fused.rollout_lmpc_learning(
+        *lmpc_args, sd["xcurv0"], sd["xglob0"], *columns, n_laps=3, n_steps=LEARN_STEPS,
+        solves=solves))
+    learn_k1 = k1.launches
+    xc, us, steps = xc.cpu().numpy(), us.cpu().numpy(), steps.tolist()
+    its = np.array([int(s.iterations[0]) for s in solves])
+    active = sum(steps)
+    T = steps[0]
+    # lap 1 is phase 6's lap: the same arithmetic, row for row
+    lap_xc, lap_us, lap_T = l_lap
+    m = min(T, lap_T)
+    lap1_err = max(float(np.abs(xc[:m] - lap_xc[:m]).max()),
+                   float(np.abs(us[:m] - lap_us[:m]).max()),
+                   float(np.abs(xc[m] + [0, 0, 0, 0, L, 0] - lap_xc[m]).max()))
+    # lap 1 gated as phase 6 gates the lap; laps 2 and 3 by the nudged JAX
+    # learning runs: no further from the unnudged run's lap steps than the
+    # furthest nudged run, and the curve decreasing wherever theirs all do
+    ref = lap_spread["l_shape/jax"]
+    held = min(ref["nudged_first_row_off"])
+    held_err = float(np.abs(xc[:held] - golden[:held]).max())
+    lap1_dev = max(abs(n - ref["golden_lap_steps"]) for n in ref["nudged_lap_steps"])
+    spread = lap_spread["l_shape/jax_learning"]
+    unnudged, nudged = spread["unnudged_lap_steps"], np.array(spread["nudged_lap_steps"])
+    devs = [int(np.abs(nudged[:, j] - unnudged[j]).max()) for j in range(3)]
+    curve = [spread["seed_lap_steps"]] + steps
+    jcurves = np.concatenate([np.full((len(nudged), 1), spread["seed_lap_steps"]), nudged], 1)
+    must_fall = [bool((jcurves[:, i] > jcurves[:, i + 1]).all()) for i in range(3)]
+    emit({"phase": "learning", "name": "lmpc_learning_l_shape", "dtype": "f64", "n_laps": 3,
+          "n_steps": LEARN_STEPS, "lap_steps": steps, "laps_done": int(done),
+          "jax_unnudged_lap_steps": unnudged, "lap_steps_dev_bounds": devs,
+          "lap1_vs_lmpc_lap_max_abs": lap1_err, "lap1_lmpc_lap_steps": lap_T,
+          "lap1_held_rows": held, "lap1_held_max_abs_err": held_err,
+          "ms_per_step": ms / LEARN_STEPS, "ms_per_lap_step": ms / active,
+          "iters_median": float(np.median(its[:active])), "iters_max": int(its[:active].max()),
+          "iters_mean": float(its[:active].mean()), "capped": int((its[:active] >= 40).sum()),
+          "first_capped_step": first_capped(its), "max_abs_ey": float(np.abs(xc[:, 5]).max()),
+          "k1_launches": learn_k1})
+    require(np.isfinite(xc).all() and np.isfinite(us).all(), "learning: non-finite states")
+    require(int(done) == 3, f"learning: {int(done)} of 3 laps in {LEARN_STEPS} steps")
+    require(learn_k1 == LEARN_STEPS, f"learning: K1 launched {learn_k1} times")
+    require(T == lap_T and lap1_err <= 1e-12,
+            f"learning: lap 1 ({T} steps) is {lap1_err} off phase 6's lap ({lap_T} steps)")
+    require(held_err <= ref["atol"], f"learning: lap 1 rows 0..{held - 1} off the golden "
+                                     f"by {held_err} > {ref['atol']}")
+    require(abs(T - ref["golden_lap_steps"]) <= lap1_dev, f"learning: lap 1 of {T} steps")
+    require(xc[T - 1, 4] < L and 0 <= xc[T, 4] < L, "learning: lap 1's end misplaced")
+    for j in (1, 2):
+        require(abs(steps[j] - unnudged[j]) <= devs[j],
+                f"learning: lap {j + 1} of {steps[j]} steps, more than {devs[j]} from the "
+                f"JAX run's {unnudged[j]}")
+    for i in range(3):
+        require(not must_fall[i] or curve[i] > curve[i + 1], f"learning: curve {curve} rises")
+    require(float(np.abs(xc[:, 5]).max()) <= 1.0, "learning: the run leaves the track")
+
+    # ---- protocol: zero state -> PID lap -> MPC-LTI lap -> 3 learning laps ---
+    stage_ms = {}
+
+    def staged(name, fn):
+        def wrapper(*args, **kwargs):
+            out, stage_ms[name] = timed(lambda: fn(*args, **kwargs))
+            return out
+        return wrapper
+
+    stages = (protocol.rollout_pid, fused.rollout_mpc_tracking, fused.rollout_lmpc_learning)
+    protocol.rollout_pid = staged("pid", stages[0])
+    fused.rollout_mpc_tracking = staged("mpc_lti", stages[1])
+    fused.rollout_lmpc_learning = staged("learning", stages[2])
+    k1.launches = 0
+    try:
+        out, total_ms = timed(lambda: protocol.run_learning_protocol(tr, n_laps=3))
+    finally:
+        protocol.rollout_pid, fused.rollout_mpc_tracking, fused.rollout_lmpc_learning = stages
+    proto_k1 = k1.launches
+    curve = out["lap_steps"]
+    n_seed = int(L / 0.7 / 0.1 * 1.8)  # run_learning_protocol's own sizing
+    n_learn = 3 * curve[1] + 10
+    jax_curve = lap_spread["l_shape/jax_protocol"]["lap_steps"]
+    ss1, q1 = out["seed_columns"]["ss1"], out["seed_columns"]["q1"]
+    T1 = curve[1]
+    columns_ok = (ss1[T1, 4] >= L and bool((ss1[T1 + 1:] == protocol.SENTINEL).all())
+                  and bool((q1 == (T1 - 1) - np.arange(len(q1))).all()))
+    emit({"phase": "protocol", "layout": "l_shape", "width": 1.0, "dtype": "f64", "n_laps": 3,
+          "lap_steps": curve, "jax_lap_steps": jax_curve, "wall_ms": total_ms,
+          "stage_ms": stage_ms, "stage_steps": {"pid": n_seed, "mpc_lti": n_seed,
+                                                "learning": n_learn},
+          "k1_launches": proto_k1, "columns_ok": columns_ok,
+          "finite": bool(np.isfinite(out["xcurv"]).all())})
+    require(curve[:2] == jax_curve[:2], f"protocol: seed laps {curve[:2]} != {jax_curve[:2]}")
+    require(all(a > b for a, b in zip(curve, curve[1:])), f"protocol: curve {curve} rises")
+    require(curve[-1] < 100, f"protocol: last lap of {curve[-1]} steps")
+    require(columns_ok, "protocol: the seed columns lose add_trajectory's structure")
+    require(bool(np.isfinite(out["xcurv"]).all()), "protocol: non-finite learning states")
+    require(proto_k1 == 2 * n_seed + n_learn,
+            f"protocol: K1 launched {proto_k1} times, not {2 * n_seed + n_learn}")
+
+    # ---- learning_fleet: 64 lanes, one learning lap each ---------------------
+    B, n_steps = 64, 250
+    pert = np.zeros((B, 6))
+    pert[:, 5] = np.random.default_rng(0).normal(0, 0.01, B)
+    xc0 = sd["xcurv0"] + torch.as_tensor(pert, **kw)
+    xg0 = sd["xglob0"].expand(B, 6).contiguous()
+
+    def learning_fleet(n, lanes=slice(None), solves=None):
+        return fused.rollout_lmpc_learning_batch(
+            *lmpc_args, xc0[lanes], xg0[lanes], *columns, n_laps=1, n_steps=n, solves=solves)
+
+    learning_fleet(2)  # warm-up
+    solves = []
+    k1.launches = 0
+    (xc, us, steps, done), ms = timed(lambda: learning_fleet(n_steps, solves=solves))
+    fleet_k1 = k1.launches
+    its = torch.stack([s.iterations for s in solves], dim=1).cpu().numpy()  # (B, n_steps)
+    runs = its.max(axis=0)  # the iterations each batched solve ran
+    steps = steps[:, 0].cpu().numpy()
+    active = np.arange(n_steps)[None, :] < steps[:, None]
+    lanes = []
+    for b in (0, 1):
+        alone = []
+        xs, us1, _, _ = learning_fleet(20, slice(b, b + 1), alone)
+        first = min(first_capped(its[b, :20]), first_capped([int(s.iterations[0]) for s in alone]))
+        lanes.append({"lane": b, "first_capped_step": first,
+                      "first_step_max_abs": max(float((xc[b, :2] - xs[0, :2]).abs().max()),
+                                                float((us[b, :1] - us1[0, :1]).abs().max())),
+                      "to_first_capped_max_abs": float((xc[b, :first + 1]
+                                                        - xs[0, :first + 1]).abs().max())})
+    xc = xc.cpu().numpy()
+    lane_ey = np.abs(xc[..., 5]).max(axis=1)
+    off_track = [{"lane": int(b), "max_abs_ey": float(lane_ey[b]), "lap_steps": int(steps[b])}
+                 for b in np.nonzero(lane_ey > 1.0)[0]]
+    emit({"phase": "learning_fleet", "B": B, "n_steps": n_steps, "n_laps": 1, "dtype": "f64",
+          "ms_per_step": ms / n_steps, "lane_steps_per_s": B * n_steps / (ms / 1e3),
+          "active_lane_steps_per_s": float(active.sum()) / (ms / 1e3),
+          "lap_steps_min": int(steps.min()), "lap_steps_median": float(np.median(steps)),
+          "lap_steps_max": int(steps.max()), "laps_done": int(done.sum()),
+          "iters_run_mean": float(runs.mean()), "iters_run_max": int(runs.max()),
+          "iters_lane_mean": float(its[active].mean()), "capped_lane_steps":
+          int((its[active] >= 40).sum()), "max_abs_ey": float(lane_ey.max()),
+          "lanes_off_track": off_track, "off_track_bound": FLEET_OFF_TRACK_LANES,
+          "k1_launches": fleet_k1, "lanes_vs_single": lanes,
+          "first_step_atol": FIRST_STEP_ATOL, "whole_run_atol": WHOLE_RUN_ATOL})
+    require(np.isfinite(xc).all() and bool(us.isfinite().all()), "learning_fleet: non-finite")
+    require(bool((done == 1).all()), f"learning_fleet: {int((done < 1).sum())} lanes unfinished")
+    require(len(off_track) <= FLEET_OFF_TRACK_LANES,
+            f"learning_fleet: {len(off_track)} lanes leave the track: {off_track}")
+    require(fleet_k1 == n_steps, f"learning_fleet: K1 launched {fleet_k1} times")
+    for r in lanes:
+        require(r["first_step_max_abs"] <= FIRST_STEP_ATOL
+                and r["to_first_capped_max_abs"] <= WHOLE_RUN_ATOL,
+                f"learning_fleet: lane {r['lane']} alone differs from the fleet: {r}")
+    return learning_fleet
+
+
 def run():
     import torch
 
@@ -170,7 +399,7 @@ def run():
     from car_racing_tpu_torch.models import controllers
     from car_racing_tpu_torch.ops import dynamics, ipm, lmpc_learning, track
     from car_racing_tpu_torch.planning import overtake
-    from car_racing_tpu_torch.racing import fused
+    from car_racing_tpu_torch.racing import fused, protocol
     from car_racing_tpu_torch.utils import fixtures, params
 
     dev = torch.device("cuda")
@@ -334,15 +563,18 @@ def run():
     # steps to no further from the golden's than the furthest nudged lap.
     with open("data/goldens/lmpc_lap_spread.json") as f:
         lap_spread = json.load(f)
+    golden_laps, lap_runs = {}, {}
     for layout, n_steps in LMPC_LAPS:
         golden = np.loadtxt(f"data/goldens/lmpc_lap_{layout}.csv", delimiter=",")
         ref = lap_spread[f"{layout}/jax"]
+        golden_laps[layout] = golden
         held = min(ref["nudged_first_row_off"])
         steps_dev = max(abs(n - ref["golden_lap_steps"]) for n in ref["nudged_lap_steps"])
         solves = []
         k1.launches = 0
         (xc, us, dones, lap_steps), counter, L = lmpc_lap(layout, n_steps, f64, solves)
         xc = xc.cpu().numpy()
+        lap_runs[layout] = (xc, us.cpu().numpy(), lap_steps)
         launches = k1.launches
         conv, stats = lap_stats(solves, lap_steps)
         first_capped = int(np.argmin(conv)) if not conv.all() else n_steps
@@ -408,7 +640,11 @@ def run():
                     f"l_shape f32: {lap_steps} lap steps, more than {f32_dev} from the JAX "
                     f"f32 lap's {f32_ref['reference_lap_steps']}")
 
-    # ---- 7. MPC-LTI fleet, f32: K1's main path ------------------------------
+    # ---- 7. the LMPC learning protocol, f64, through K1 ------------------------
+    learning_fleet = learning_phases(dev, setup, lap_spread, golden_laps["l_shape"],
+                                     lap_runs["l_shape"])
+
+    # ---- 8. MPC-LTI fleet, f32: K1's main path ------------------------------
     fleet = setup("l_shape", 0.8, f32)
     B, n_steps = 256, 100
     xc0 = torch.as_tensor(np.array([0.1, 0, 0, 0, 0, 0]) + 0.05 * np.random.default_rng(
@@ -436,7 +672,7 @@ def run():
     require(lane0 <= 1e-3, f"fleet: lane 0 differs from its single-lane rollout by {lane0}")
     require(fleet_k1 == n_steps, f"fleet: K1 launched {fleet_k1} times, not {n_steps}")
 
-    # ---- 8. corridor sweep, f32: K2's main path -----------------------------
+    # ---- 9. corridor sweep, f32: K2's main path -----------------------------
     S, N = 64, 10
     inputs = overtake.corridor_sweep_inputs(S, N, seed=0, dtype=f32, device=dev)
     overtake.corridor_sweep(*inputs, num_horizon=N)  # warm-up
@@ -478,7 +714,7 @@ def run():
     require(sweep_k2 == int(it.max()) + 1 or sweep_k2 == 30,
             f"sweep: {sweep_k2} K2 launches for a slowest branch of {int(it.max())} iterations")
 
-    # ---- 9. 256 LMPC QPs through solve_qp_batch, f64: K3's main path ---------
+    # ---- 10. 256 LMPC QPs through solve_qp_batch, f64: K3's main path --------
     kw = dict(device=dev, dtype=f64)
     sd = fixtures.load_lmpc_seed("l_shape", **kw)
     tr_l = track.load_track("l_shape", width=1.0, **kw)
@@ -535,10 +771,11 @@ def run():
     require(eq_k3 == runs and eq_k2 == 0,
             f"eq_batch: {eq_k3} K3 and {eq_k2} K2 launches for {runs} iterations")
 
-    # ---- 10. kernel timings at the paths' shapes ------------------------------
-    # K1 at the fleet's B = 256 in f32 and the LMPC step's B = 1 in f64 (and
-    # 256); a call is 100 dependent substeps, so ns_per_substep is the time
-    # one substep takes on the kernel's critical path
+    # ---- 11. kernel timings at the paths' shapes ------------------------------
+    # K1 at the fleet's B = 256 in f32, the LMPC step's B = 1 and the
+    # learning fleet's B = 64 in f64 (and 256); a call is 100 dependent
+    # substeps, so ns_per_substep is the time one substep takes on the
+    # kernel's critical path
     tr, bike = fleet[0], fleet[1]
     gold = setup("l_shape", 0.8, f64)
     xg, xcs, u = period_states(np.random.default_rng(1), 256, False, f32)
@@ -546,6 +783,7 @@ def run():
     k1_times = {}
     for name, B, args in (("f32", 256, (tr, bike, xg, xcs, u)),
                           ("f64", 1, (gold[0], gold[1], *(a[:1].contiguous() for a in args64))),
+                          ("f64", 64, (gold[0], gold[1], *(a[:64].contiguous() for a in args64))),
                           ("f64", 256, (gold[0], gold[1], *args64))):
         ms = cuda_ms(lambda: k1.propagate(*args), 50)
         device_ms = kernel_device_ms(lambda: k1.propagate(*args), "propagate_kernel")
@@ -608,12 +846,13 @@ def run():
     emit({"phase": "time_k3", "B": 1, "n": 68, "r": 8, "dtype": "f64",
           "device_ms": kernel_device_ms(lambda: k3.solve_multi(A1, B1), "cholesky_solve_kernel")})
 
-    # ---- 11. where the time goes: device busy share under torch.profiler ----
+    # ---- 12. where the time goes: device busy share under torch.profiler ----
     paths = {
         "fleet_5_steps": lambda: fused.rollout_mpc_tracking_batch(*fleet, xc0, xg0, n_steps=5),
         "sweep": lambda: overtake.corridor_sweep(*inputs, num_horizon=N),
         "lmpc_lap_5_steps": lambda: lmpc_lap("l_shape", 5, f64, None),
         "eq_batch": lambda: ipm.solve_qp_batch(qp, z0, iters=40),
+        "learning_fleet_5_steps": lambda: learning_fleet(5),
     }
     # both untraced times before any trace: a sweep timed right after the
     # fleet's trace read twice its phase-6 time on the H100
