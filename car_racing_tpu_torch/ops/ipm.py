@@ -1,7 +1,10 @@
 """Primal-dual interior point for dense convex QPs
-(car_racing_tpu/ops/ipm.py:87-160, 346-579).
+(car_racing_tpu/ops/ipm.py:87-160, 346-579, 816-972).
 
     min 1/2 z'Hz + g'z   s.t.   C z >= d,   E z = e
+
+and, in :func:`solve_qp_nl`, with nonlinear rows ``c_nl(z) >= 0`` in place
+of the equality rows.
 
 Every QP field carries a leading batch dimension, so a fleet or a branch
 sweep is one call.  Both solvers run the JAX package's iteration: each
@@ -83,6 +86,13 @@ def _kkt_residual(grad_L, c_i, c_e, s, lam):
     """Inf-norm KKT residual per problem; inputs carry a leading batch."""
     parts = [grad_L.abs(), (c_i - s).abs(), c_e.abs(), (s * lam).abs()]
     return torch.cat(parts, dim=-1).amax(dim=-1)
+
+
+def _max_step(dv, v, tau):
+    """Fraction-to-boundary step length per problem: the largest step in
+    (0, 1] that keeps ``v + step * dv`` above ``(1 - tau) v``."""
+    ratio = torch.where(dv < 0, -tau * v / dv.clamp_max(-1e-30), torch.inf)
+    return ratio.amin(dim=1).clamp_max(1.0)
 
 
 def _bmv(M, v):
@@ -185,9 +195,7 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton) -> IPMSolution:
         Cdz = _bmv(C, dz)
         ds = Cdz + (ci - s)
         dlam = r_bar - sl * Cdz
-        neg = lambda dv, v: torch.where(dv < 0, -tau * v / dv.clamp_max(-1e-30), torch.inf)
-        a_s = neg(ds, s).amin(dim=1).clamp_max(1.0)
-        a_l = neg(dlam, lam).amin(dim=1).clamp_max(1.0)
+        a_s, a_l = _max_step(ds, s, tau), _max_step(dlam, lam, tau)
 
         # non-finite step guard: freeze a problem whose Newton step went NaN
         ok = (dz.isfinite().all(dim=1) & ds.isfinite().all(dim=1)
@@ -233,3 +241,118 @@ def solve_qp_batch(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | No
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return _solve(qp, z0, iters, tol, 1e-9, newton)
+
+
+GRADE_NL = 1e2  # solve_qp_nl's `converged` reports res < GRADE_NL * tol (ipm.py:77-81)
+
+
+def solve_qp_nl(H, g, C, d, c_nl, z0, *, lam0=None, s0=None, iters: int = 40,
+                tol: float | None = None, warm_if=None, iters_cap=None) -> IPMSolution:
+    """``ipm.solve_qp_nl`` (ipm.py:816-972) for a batch of problems
+    ``min 1/2 z'Hz + g'z  s.t.  Cz >= d,  c_nl(z) >= 0``, each as if solved
+    alone (the JAX package ``vmap``s it).
+
+    H (Bt, n, n), g (Bt, n), C (Bt, m1, n), d (Bt, m1), z0 (Bt, n);
+    ``c_nl(z (Bt, n)) -> (vals (Bt, m2), jac (Bt, m2, n))`` gives the
+    nonlinear rows and their Jacobian in closed form (Gauss-Newton: the
+    Hessian stays H).  ``lam0``/``s0`` (Bt, m1 + m2) start the multipliers
+    and slacks warm; ``warm_if`` (Bt,) bool picks per problem between that
+    warm start and the cold one (s from the rows at z0, lam = 0.1/s,
+    mu = 0.1); ``iters_cap`` (Bt,) caps each problem's iterations below
+    ``iters``.  A problem freezes once its KKT residual passes ``tol``, its
+    Newton step turns non-finite, or it reaches its cap; the loop ends when
+    every problem is frozen, reading one flag back to the host per
+    iteration.  It differs from :func:`solve_qp` where the JAX solver does:
+    a 1e-9 ridge, ``mu = 0.2 * duality``, the slack reset onto strictly
+    feasible rows after each step, ``converged`` graded with ``GRADE_NL``,
+    and ``iterations`` equal to the cap when a problem did not converge.
+    """
+    if warm_if is not None and (lam0 is None or s0 is None):
+        raise ValueError("warm_if selects between the warm (lam0/s0) and cold inits at "
+                         "runtime: it requires lam0 and s0")
+    Bt, n = z0.shape
+    dtype, dev = z0.dtype, z0.device
+    if tol is None:
+        tol = 1e-8 if dtype == torch.float64 else 1e-3
+    eps_div, mu_floor = _eps_for(dtype)
+    sigma_cap = _sigma_cap(dtype)
+    tau = 0.995
+    eye = torch.eye(n, dtype=dtype, device=dev)
+
+    def eval_c(z):
+        vals, jac = c_nl(z)
+        return torch.cat([_bmv(C, z) - d, vals], dim=-1), torch.cat([C, jac], dim=-2)
+
+    def residual(z, s, lam, ci, Ji):
+        gL = _bmv(H, z) + g - _bmTv(Ji, lam)
+        return gL, _kkt_residual(gL, ci, z.new_zeros(Bt, 0), s, lam)
+
+    ci0, _ = eval_c(z0)
+    m = ci0.shape[-1]
+    inv_m = 1.0 / m  # XLA folds the JAX code's `sum / m` into `sum * (1 / m)`
+    s_cold = ci0.clamp_min(1e-2)
+    lam_cold = 0.1 / s_cold
+    mu_cold = torch.full((Bt,), 1e-1, dtype=dtype, device=dev)
+    if lam0 is None:
+        s, lam, mu = s_cold, lam_cold, mu_cold
+    else:
+        s = s0.clamp_min(1e-3)
+        lam = lam0.clamp_min(1e-3)
+        mu = ((s * lam).sum(dim=-1) * inv_m).clamp_min(mu_floor)
+        if warm_if is not None:
+            w = warm_if[:, None]
+            s = torch.where(w, s, s_cold)
+            lam = torch.where(w, lam, lam_cold)
+            mu = torch.where(warm_if, mu, mu_cold)
+    cap = torch.full((Bt,), iters, dtype=torch.int32, device=dev)
+    if iters_cap is not None:
+        cap = torch.as_tensor(iters_cap, dtype=torch.int32, device=dev).expand(Bt).clamp_max(iters)
+
+    z = z0
+    done = torch.zeros(Bt, dtype=torch.bool, device=dev)
+    done_iter = torch.full((Bt,), -1, dtype=torch.int32, device=dev)
+    for k in range(iters):
+        active = ~done & (k < cap)
+        if not bool(active.any()):
+            break
+        ci, Ji = eval_c(z)
+        gL, res = residual(z, s, lam, ci, Ji)
+        now_done = done | (res < tol)
+        done_iter = torch.where(active & now_done & (done_iter < 0), k, done_iter)
+        done = torch.where(active, now_done, done)
+
+        s_safe = s.clamp_min(eps_div)
+        sl = (lam / s_safe).clamp_max(sigma_cap)
+        r_bar = (mu[:, None] - s * lam) / s_safe - sl * (ci - s)
+        Hbar = H + (Ji.mT * sl[:, None, :]) @ Ji + 1e-9 * eye
+        g_bar = -gL + _bmTv(Ji, r_bar)
+        dz = _cho_solve(Hbar, g_bar)
+        Jdz = _bmv(Ji, dz)
+        ds = Jdz + (ci - s)
+        dlam = r_bar - sl * Jdz
+        a_s, a_l = _max_step(ds, s, tau), _max_step(dlam, lam, tau)
+
+        # non-finite step guard: freeze a problem whose Newton step went NaN
+        ok = dz.isfinite().all(dim=1) & ds.isfinite().all(dim=1) & dlam.isfinite().all(dim=1)
+        upd = active & ~now_done & ok
+        u1 = upd[:, None]
+        z = torch.where(u1, z + a_s[:, None] * dz, z)
+        s = torch.where(u1, s + a_s[:, None] * ds, s)
+        lam = torch.where(u1, lam + a_l[:, None] * dlam, lam)
+        # the slack reset onto strictly feasible rows (ipm.py:939-940)
+        ci_new, _ = eval_c(z)
+        s = torch.where(u1 & (ci_new > 1e-12), ci_new, s)
+        duality = (s * lam).sum(dim=1) * inv_m
+        mu = torch.where(upd, (0.2 * duality).clamp_min(mu_floor), mu)
+
+    ci, Ji = eval_c(z)
+    _, res = residual(z, s, lam, ci, Ji)
+    return IPMSolution(
+        z=z,
+        lam=lam,
+        nu=z.new_zeros(Bt, 0),
+        s=s,
+        converged=res < tol * GRADE_NL,
+        kkt_res=res,
+        iterations=torch.where(done_iter < 0, cap, done_iter).to(torch.int32),
+    )

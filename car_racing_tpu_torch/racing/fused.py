@@ -1,11 +1,12 @@
-"""Closed-loop rollouts (car_racing_tpu/racing/fused.py:31-75, 261-604,
+"""Closed-loop rollouts (car_racing_tpu/racing/fused.py:31-258, 261-604,
 1003-1042).
 
 The JAX package fuses the receding-horizon loop into one ``lax.scan`` and
 ``vmap``s it over a fleet.  Here the loop is a Python loop over control
 steps, and the fleet is the batch dimension of every call inside it: one
 MPC-LTI or LMPC solve for all lanes, then one launch of the integrator
-kernel K1.
+kernel K1.  The obstacle-avoidance rollouts (MPC-CBF, iLQR) drive one
+vehicle, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -388,3 +389,163 @@ def rollout_lmpc_learning(
         lin_points0, lin_input0, n_laps=n_laps, n_steps=n_steps, control_dt=control_dt,
         sub_dt=sub_dt, solves=solves)
     return xc[0], us[0], lap_steps[0], laps_done[0]
+
+
+def polyder(coef):
+    """``jnp.polyder`` of polynomials ``coef (..., deg+1)``, highest power first."""
+    deg = coef.shape[-1] - 1
+    return coef[..., :-1] * torch.arange(deg, 0, -1, dtype=coef.dtype, device=coef.device)
+
+
+def polyval(coef, x):
+    """``jnp.polyval``: polynomials ``coef (..., deg+1)`` (highest power
+    first) at points ``x (T,)``, by Horner's rule from zero in
+    ``jnp.polyval``'s order, each step one fused multiply-add as XLA
+    compiles it.  Returns (..., T)."""
+    y = torch.zeros(*coef.shape[:-1], *x.shape, dtype=x.dtype, device=x.device)
+    for i in range(coef.shape[-1]):
+        y = torch.addcmul(coef[..., i, None], y, x)
+    return y
+
+
+def _forecast(coef_s, coef_ey, t, N, control_dt):
+    """Prescribed-motion predictions ``[vs, vey, 0, 0, s, ey]`` at times
+    ``t + control_dt * (0..N)`` of obstacles whose s and ey follow the
+    polynomials ``coef_s``/``coef_ey (..., deg+1)``; (..., N+1, 6)."""
+    ts = t + control_dt * torch.arange(N + 1, dtype=t.dtype, device=t.device)
+    s, ey = polyval(coef_s, ts), polyval(coef_ey, ts)
+    vs, vey = polyval(polyder(coef_s), ts), polyval(polyder(coef_ey), ts)
+    zeros = torch.zeros_like(s)
+    return torch.stack([vs, vey, zeros, zeros, s, ey], dim=-1)
+
+
+def rollout_mpccbf(
+    track,
+    bike_params,
+    cbf_param,
+    sys_param,
+    xtarget,
+    xcurv0,
+    xglob0,
+    obs_s_coef,
+    obs_ey_coef,
+    obs_active,
+    obs_halfs,
+    agent_half,
+    n_steps: int = 100,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    cold_iters: int = 40,
+    warm_iters: int = 20,
+    solves: list | None = None,
+):
+    """Closed-loop MPC-CBF racing of one vehicle from ``xcurv0 (6,)``
+    among obstacles on a prescribed schedule (fused.py:83-177).
+
+    Obstacle k's s and ey follow the polynomials ``obs_s_coef[k]`` and
+    ``obs_ey_coef[k]`` of time (highest power first); it is considered when
+    ``obs_active[k]`` and within ``obstacle_gate_mask``'s window.  Step 0
+    solves cold with ``cold_iters`` iterations at t = 0; step k >= 1 at
+    t = k * control_dt starts from the previous step's primal-dual iterate
+    shifted one stage (``shift_cbf_warm``) and stops after ``warm_iters``.
+    Every step then runs one control period through K1 and wraps s back by
+    the lap length once it passes it.  If ``solves`` is a list, each
+    step's solution (a batch of one) is appended to it.
+
+    Returns (xcurv (n_steps+1, 6), u (n_steps, 2), kkt (n_steps-1,),
+    iterations (n_steps-1,) int32): the KKT residuals and Newton iterations
+    of the warm solves, as the JAX rollout reports them.
+    """
+    N = cbf_param.num_horizon
+    dtype, dev = xcurv0.dtype, xcurv0.device
+    n_obs = obs_s_coef.shape[0]
+    L = track.lap_length.to(dtype)
+    width = track.width.to(dtype)
+
+    def solve(xcurv, t, warm, iters):
+        obs_trajs = _forecast(obs_s_coef, obs_ey_coef, t, N, control_dt)  # (n_obs, N+1, 6)
+        gate = controllers.obstacle_gate_mask(xcurv, obs_trajs[None, :, 0, 4], L)
+        out = controllers.mpccbf(xcurv, xtarget, cbf_param, sys_param, width, obs_trajs[None],
+                                 obs_active[None] & gate, agent_half, obs_halfs, L, warm=warm,
+                                 return_traj=True, iters=iters)
+        if solves is not None:
+            solves.append(out[3])
+        return out
+
+    def advance(xcurv, xglob, u):
+        xglob, xcurv = dynamics.propagate(track, bike_params, xglob, xcurv, u.contiguous(),
+                                          control_dt=control_dt, sub_dt=sub_dt)
+        s = xcurv[:, 4]
+        xcurv = torch.cat([xcurv[:, :4], (s + torch.where(s > L, -L, 0.0))[:, None],
+                           xcurv[:, 5:]], dim=1)
+        return xcurv, xglob
+
+    xcurv, xglob = xcurv0[None], xglob0[None]
+    u, _, _, sol = solve(xcurv, torch.zeros((), dtype=dtype, device=dev), None, cold_iters)
+    xcurvs, us, kkts, its = [xcurv0], [u[0]], [], []
+    for k in range(n_steps - 1):
+        xcurv, xglob = advance(xcurv, xglob, u)
+        warm = controllers.shift_cbf_warm(sol, N, n_obs)
+        t = (torch.tensor(float(k), dtype=dtype, device=dev) + 1.0) * control_dt
+        u, _, _, sol = solve(xcurv, t, warm, warm_iters)
+        xcurvs.append(xcurv[0])
+        us.append(u[0])
+        kkts.append(sol.kkt_res[0])
+        its.append(sol.iterations[0])
+    xcurv, _ = advance(xcurv, xglob, u)
+    xcurvs.append(xcurv[0])
+    stack = lambda xs, like: torch.stack(xs) if xs else like
+    return (torch.stack(xcurvs), torch.stack(us),
+            stack(kkts, xcurv0.new_zeros(0)),
+            stack(its, torch.zeros(0, dtype=torch.int32, device=dev)))
+
+
+def rollout_ilqr(
+    track,
+    bike_params,
+    ilqr_param,
+    xtarget,
+    xcurv0,
+    xglob0,
+    obs_s_coef,
+    obs_ey_coef,
+    agent_half,
+    obs_half,
+    n_steps: int = 100,
+    control_dt: float = 0.1,
+    sub_dt: float = 0.001,
+    warm_start: bool = True,
+):
+    """Closed-loop iLQR racing of one vehicle from ``xcurv0 (6,)`` behind
+    one obstacle whose s and ey follow the polynomials ``obs_s_coef`` and
+    ``obs_ey_coef (deg+1,)`` of time (fused.py:182-258).
+
+    Step k forecasts the obstacle at t = k * control_dt, solves iLQR
+    (``controllers.ilqr``), and runs one control period through K1.
+    ``warm_start`` starts each solve from the previous step's input
+    sequence shifted one stage; ``warm_start=False`` starts every solve
+    from zeros, as the ``ilqr_ellipse`` golden does.
+
+    Returns (xcurv (n_steps+1, 6), u (n_steps, 2), iterations (n_steps,)
+    int32: each solve's Levenberg iterations).
+    """
+    N = ilqr_param.num_horizon
+    dtype, dev = xcurv0.dtype, xcurv0.device
+    xcurv, xglob = xcurv0[None], xglob0[None]
+    u_warm = xcurv0.new_zeros(N, U_DIM)
+    xcurvs, us, its = [xcurv0], [], []
+    for k in range(n_steps):
+        t = torch.tensor(float(k), dtype=dtype, device=dev) * control_dt
+        obs_traj = _forecast(obs_s_coef, obs_ey_coef, t, N, control_dt)  # (N+1, 6)
+        u, U, it = controllers.ilqr(xcurv[0], xtarget, ilqr_param, obs_traj, agent_half,
+                                    obs_half, u_init=u_warm if warm_start else None,
+                                    return_seq=True)
+        xglob, xcurv = dynamics.propagate(track, bike_params, xglob, xcurv,
+                                          u[None].contiguous(), control_dt=control_dt,
+                                          sub_dt=sub_dt)
+        u_warm = torch.cat([U[1:], U[-1:]])
+        xcurvs.append(xcurv[0])
+        us.append(u)
+        its.append(it)
+    return (torch.stack(xcurvs), torch.stack(us),
+            torch.tensor(its, dtype=torch.int32, device=dev))

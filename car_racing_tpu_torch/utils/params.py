@@ -102,3 +102,63 @@ class LMPCParam:
             Qslack=_t(5 * np.diag([10, 0, 0, 1, 10, 0]), dev, dtype),
             dR=_t(5 * np.diag([0.8, 0.0]), dev, dtype),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ILQRParam:
+    """iLQR parameters (car_racing_tpu/utils/params.py:86-108): LTI model,
+    stage costs, at most ``max_iter`` Levenberg iterations over a horizon of
+    ``num_horizon`` stages."""
+
+    A: torch.Tensor
+    B: torch.Tensor
+    Q: torch.Tensor
+    R: torch.Tensor
+    vt: torch.Tensor
+    eyt: torch.Tensor
+    max_iter: int = 150
+    num_horizon: int = 50
+
+    @staticmethod
+    def default(vt=0.6, eyt=0.0, data_dir="data", *, device="cuda",
+                dtype=torch.float64) -> "ILQRParam":
+        dev = resolve(device)
+        A, B = load_lti(data_dir, device=dev, dtype=dtype)
+        return ILQRParam(
+            A=A,
+            B=B,
+            Q=_t(np.diag([10.0, 0.0, 0.0, 4.0, 0.0, 40.0]), dev, dtype),
+            R=_t(np.diag([0.1, 0.1]), dev, dtype),
+            vt=_t(vt, dev, dtype),
+            eyt=_t(eyt, dev, dtype),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCCBFParam:
+    """MPC-CBF parameters (car_racing_tpu/utils/params.py:139-162): the
+    MPC-LTI costs plus the barrier decay rate ``alpha``."""
+
+    A: torch.Tensor
+    B: torch.Tensor
+    Q: torch.Tensor
+    R: torch.Tensor
+    vt: torch.Tensor
+    eyt: torch.Tensor
+    alpha: torch.Tensor
+    num_horizon: int = 10
+
+    @staticmethod
+    def default(vt=0.6, eyt=0.0, alpha=0.8, data_dir="data", *, device="cuda",
+                dtype=torch.float64) -> "MPCCBFParam":
+        dev = resolve(device)
+        A, B = load_lti(data_dir, device=dev, dtype=dtype)
+        return MPCCBFParam(
+            A=A,
+            B=B,
+            Q=_t(np.diag([10.0, 0.0, 0.0, 4.0, 0.0, 40.0]), dev, dtype),
+            R=_t(np.diag([0.1, 0.1]), dev, dtype),
+            vt=_t(vt, dev, dtype),
+            eyt=_t(eyt, dev, dtype),
+            alpha=_t(alpha, dev, dtype),
+        )

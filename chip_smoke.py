@@ -28,15 +28,21 @@ beside its bound:
    first against phase 6's lap, the others against the nudged JAX runs
    (``learning``); ``run_learning_protocol`` from a standing start
    (``protocol``); and a learning fleet of 64 lanes (``learning_fleet``);
-8. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
-9. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
-   with the plain solve;
-10. 256 LMPC QPs (n = 68, 125 inequality and 7 equality rows) through
+8. the obstacle-avoidance controllers through K1: the MPC-CBF golden
+   (``mpccbf``, 200 steps) and the cold iLQR golden (``ilqr``, 100 steps,
+   each step's Levenberg count equal to the JAX run's) in f64, held as
+   ``data/goldens/controller_spread.json`` records the reference, and the
+   JAX bench's f32 shapes timed from its first start states (three for
+   ``mpccbf_time``, two for ``ilqr_time`` cold and warm);
+9. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
+10. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
+    with the plain solve;
+11. 256 LMPC QPs (n = 68, 125 inequality and 7 equality rows) through
     ``ipm.solve_qp_batch`` in f64 (K3's path), against the same batch with
     the plain solve, and beside the controllers' dense-LU ``ipm.solve_qp``;
-11. kernel timings at the paths' shapes, beside their bounds, and K3 with
+12. kernel timings at the paths' shapes, beside their bounds, and K3 with
     block teams of 128, 256 and 512 threads;
-12. a torch.profiler trace of each path: the device's busy and idle share;
+13. a torch.profiler trace of each path: the device's busy and idle share;
 then the ``kernels`` line, the card's name and power limit, and the ``ok``
 line.
 
@@ -71,6 +77,15 @@ FIRST_STEP_ATOL, WHOLE_RUN_ATOL = 1e-8, 1e-4
 # l_shape/jax_learning in the same file); at that rate more than 3 of 64
 # has a probability under 1 %
 FLEET_OFF_TRACK_LANES = 3
+# the mpccbf_l_shape golden's prescribed cars (golden_fixtures.py:64-83) and
+# the ilqr_ellipse golden's blocking car (golden_fixtures.py:97-109), which
+# the JAX bench drives too (bench.py:239-327)
+CBF_S_COEF = [[0.2, 4.0], [0.2, 10.0], [0.0, 0.0], [0.0, 0.0]]
+CBF_EY_COEF = [[0.0, 0.1], [0.0, -0.1], [0.0, 0.0], [0.0, 0.0]]
+CBF_ACTIVE = [True, True, False, False]
+CBF_HALFS = [[0.2, 0.1], [0.2, 0.1], [1.0, 1.0], [1.0, 1.0]]
+ILQR_OBS_S, ILQR_OBS_EY, HALF = [0.2, 5.0], [0.0, 0.1], [0.2, 0.1]
+CONTROLLER_TARGET = [0.8, 0, 0, 0, 0, 0]
 # K1's arithmetic per vehicle and substep, each libm call counted as one
 # operation and the segment search at its least (one pair of compares):
 # 3 (wrap) + 2 (search) + 8 (slip angles) + 12 (tire forces) + 13 (dvx, dvy,
@@ -179,6 +194,19 @@ def solve_bound_ms(B, n, r, itemsize):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def timed(fn):
+    """``fn()`` and its milliseconds between CUDA events (calls may nest)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def first_capped(its):
     """Index of the first solve that stopped at the 40-iteration cap, else
     the number of solves."""
@@ -201,16 +229,6 @@ def learning_phases(dev, setup, lap_spread, golden, l_lap):
 
     f64 = torch.float64
     kw = dict(device=dev, dtype=f64)
-
-    def timed(fn):
-        """``fn()`` and its milliseconds between CUDA events (calls may nest)."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     # ---- pid_lap: the protocol's first stage at the golden's scenario ----
     tr8, bike8, _, _, xtarget = setup("l_shape", 0.8, f64)
@@ -391,6 +409,213 @@ def learning_phases(dev, setup, lap_spread, golden, l_lap):
     return learning_fleet
 
 
+def collides(xc, s_coefs, ey_coefs, L):
+    """Whether the ego's (s, ey) rows come within the footprint gate of
+    tests/test_fused.py:88-91 of a car on the prescribed polynomials."""
+    t = np.arange(len(xc)) * 0.1
+    for cs, ce in zip(s_coefs, ey_coefs):
+        ds = np.abs(np.mod(xc[:, 4] - np.polyval(cs, t) + L / 2, L) - L / 2)
+        dey = np.abs(xc[:, 5] - np.polyval(ce, t))
+        if ((ds < 0.85 * 0.4) & (dey < 0.85 * 0.2)).any():
+            return True
+    return False
+
+
+def controller_phases(dev, spread):
+    """Phase 8: the obstacle-avoidance controllers on the card, each control
+    step one K1 launch: the MPC-CBF and iLQR goldens in f64 (``mpccbf``,
+    ``ilqr``) and the JAX bench's f32 shapes timed from its first three
+    start states (``mpccbf_time``) and first two (``ilqr_time``).  ``spread`` is
+    ``data/goldens/controller_spread.json``.  Returns the K1 launches of the
+    two golden runs and the two paths for the profile phase."""
+    import torch
+
+    from car_racing_tpu_torch.kernels import propagate as k1
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused
+    from car_racing_tpu_torch.utils import params
+
+    f32, f64 = torch.float32, torch.float64
+    setups = {}
+
+    def setup(kind, dtype):
+        """The rollout's arguments but the start state, built once a dtype so
+        that no timed call reads the LTI data or copies to the card."""
+        if (kind, dtype) not in setups:
+            kw = dict(device=dev, dtype=dtype)
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64), **kw)
+            bike = dynamics.BicycleParams.default(**kw)
+            if kind == "mpccbf":
+                setups[kind, dtype] = (
+                    (track.load_track("l_shape", width=1.0, **kw), bike,
+                     params.MPCCBFParam.default(vt=0.8, **kw), params.SystemParam.default(**kw),
+                     t(CONTROLLER_TARGET)),
+                    (t(np.zeros(6)), t(CBF_S_COEF), t(CBF_EY_COEF),
+                     torch.tensor(CBF_ACTIVE, device=dev), t(CBF_HALFS), t(HALF)))
+            else:
+                setups[kind, dtype] = (
+                    (track.load_track("ellipse", width=1.0, **kw), bike,
+                     params.ILQRParam.default(vt=0.8, **kw), t(CONTROLLER_TARGET)),
+                    (t(np.zeros(6)), t(ILQR_OBS_S), t(ILQR_OBS_EY), t(HALF), t(HALF)))
+        return setups[kind, dtype]
+
+    def start(x0, dtype):
+        return torch.as_tensor(np.asarray(x0, np.float64), device=dev, dtype=dtype)
+
+    def cbf_run(x0, n_steps, solves=None):
+        head, tail = setup("mpccbf", x0.dtype)
+        return fused.rollout_mpccbf(*head, x0, *tail, n_steps=n_steps, warm_iters=20,
+                                    solves=solves)
+
+    def ilqr_run(x0, n_steps, warm_start):
+        head, tail = setup("ilqr", x0.dtype)
+        return fused.rollout_ilqr(*head, x0, *tail, n_steps=n_steps, warm_start=warm_start)
+
+    L_cbf = float(setup("mpccbf", f64)[0][0].lap_length)
+    L_ell = float(setup("ilqr", f64)[0][0].lap_length)
+
+    # ---- mpccbf: the golden in f64, 200 steps ----------------------------------
+    rec = spread["mpccbf_l_shape"]
+    golden = np.loadtxt("data/goldens/mpccbf_l_shape.csv", delimiter=",")
+    x0 = start(np.zeros(6), f64)
+    cbf_run(x0, 2)  # warm-up
+    solves = []
+    k1.launches = 0
+    (xc, us, kkt, its), ms = timed(lambda: cbf_run(x0, 200, solves))
+    cbf_k1 = k1.launches
+    xc, its, kkt = xc.cpu().numpy(), its.cpu().numpy(), kkt.cpu().numpy()
+    same = xc.shape == golden.shape
+    err = np.abs(xc - golden).max(axis=1) if same else np.array([np.nan])
+    off = np.nonzero(err > rec["off_atol"])[0]
+    held = rec["nudged_target_vx"]["first_row_off_range"][0]
+    ref_its = np.array(rec["warm_iterations"])
+    cold_its = int(solves[0].iterations[0])
+    emit({"phase": "mpccbf", "name": "mpccbf_l_shape", "dtype": "f64", "n_steps": 200,
+          "shape": list(xc.shape), "max_abs_err": float(err.max()), "atol": rec["golden_atol"],
+          "first_row_off_1e-6": int(off[0]) if len(off) else None,
+          "jax_nudged_max_abs_err_range": rec["nudged_target_vx"]["max_abs_err_range"],
+          "jax_nudged_first_row_off_range": rec["nudged_target_vx"]["first_row_off_range"],
+          "warm_capped": int((its >= 20).sum()), "jax_warm_capped": rec["warm_capped"],
+          "newton_iterations": int(its.sum()) + cold_its,
+          "jax_newton_iterations": rec["newton_iterations"],
+          "cold_iterations": cold_its, "jax_cold_iterations": rec["cold_iterations"],
+          "warm_counts_equal_to_jax": int((its == ref_its).sum()),
+          "warm_counts_equal_before_row": bool((its[:held - 1] == ref_its[:held - 1]).all()),
+          "kkt_res_median": float(np.median(kkt)), "kkt_res_max": float(kkt.max()),
+          "ms_per_step": ms / 200, "k1_launches": cbf_k1})
+    require(same, f"mpccbf: shape {xc.shape} != {golden.shape}")
+    require(np.isfinite(xc).all() and bool(us.isfinite().all()), "mpccbf: non-finite values")
+    require(float(err.max()) <= rec["golden_atol"],
+            f"mpccbf: {float(err.max())} off the golden > {rec['golden_atol']}")
+    require(cbf_k1 == 200, f"mpccbf: K1 launched {cbf_k1} times, not 200")
+
+    # ---- ilqr: the golden in f64, cold, 100 steps --------------------------------
+    rec = spread["ilqr_ellipse"]
+    golden = np.loadtxt("data/goldens/ilqr_ellipse.csv", delimiter=",")
+    x0 = start(np.zeros(6), f64)
+    ilqr_run(x0, 2, False)  # warm-up
+    k1.launches = 0
+    (xc, us, its), ms = timed(lambda: ilqr_run(x0, 100, False))
+    ilqr_k1 = k1.launches
+    xc, its = xc.cpu().numpy(), its.cpu().numpy()
+    same = xc.shape == golden.shape
+    err = float(np.abs(xc - golden).max()) if same else float("nan")
+    ref_its = np.array(rec["levenberg_iterations"])
+    counts_equal = bool((its == ref_its).all())
+    emit({"phase": "ilqr", "name": "ilqr_ellipse", "dtype": "f64", "n_steps": 100,
+          "warm_start": False, "shape": list(xc.shape), "max_abs_err": err,
+          "atol": rec["golden_atol"],
+          "jax_nudged_max_abs_err_range": rec["nudged_target_vx"]["max_abs_err_range"],
+          "levenberg_iterations": int(its.sum()), "jax_levenberg_iterations": int(ref_its.sum()),
+          "counts_equal_to_jax": counts_equal,
+          "steps_with_other_counts": np.nonzero(its != ref_its)[0].tolist(),
+          "ms_per_step": ms / 100, "ms_per_levenberg_iteration": ms / max(int(its.sum()), 1),
+          "k1_launches": ilqr_k1})
+    require(same and np.isfinite(xc).all(), f"ilqr: shape {xc.shape} or non-finite values")
+    require(err <= rec["golden_atol"], f"ilqr: {err} off the golden > {rec['golden_atol']}")
+    require(counts_equal, "ilqr: Levenberg counts differ from the JAX run's at steps "
+                          f"{np.nonzero(its != ref_its)[0].tolist()}")
+    require(ilqr_k1 == 100, f"ilqr: K1 launched {ilqr_k1} times, not 100")
+
+    # ---- mpccbf_time: the bench's f32 shapes, three starts, 100 steps each ------
+    # (the script's time limit: one timed rollout a start, two iLQR starts a mode)
+    bench = spread["mpccbf_bench_f32"]
+    cbf_starts = (np.array([0.3, 0, 0, 0, 0, 0])
+                  + 0.02 * np.random.default_rng(1).standard_normal((20, 6)))[:3]
+    cbf_starts = [start(x0, f32) for x0 in cbf_starts]
+    cbf_run(cbf_starts[0], 3)  # warm-up
+    rows, samples = [], []
+    for i, x0 in enumerate(cbf_starts):
+        solves = []
+        k1.launches = 0
+        (xc, us, kkt, its), ms = timed(lambda: cbf_run(x0, 100, solves))
+        n_k1 = k1.launches
+        samples.append(ms / 100)
+        xc, us, its = xc.cpu().numpy(), us.cpu().numpy(), its.cpu().numpy()
+        newton = int(its.sum()) + int(solves[0].iterations[0])
+        row = {"start": i, "ms_per_step": samples[-1],
+               "newton_iterations": newton, "warm_iterations": int(its.sum()),
+               "warm_capped": int((its >= 20).sum()),
+               "newton_iters_per_s": newton / (samples[-1] * 100 / 1e3),
+               "jax_f32": bench["starts"][i], "max_abs_ey": float(np.abs(xc[:, 5]).max()),
+               "k1_launches": n_k1}
+        rows.append(row)
+        require(np.isfinite(xc).all() and np.isfinite(us).all(), f"mpccbf_time {i}: non-finite")
+        require(row["max_abs_ey"] < 1.0, f"mpccbf_time {i}: leaves the track")
+        require(np.abs(us[:, 0]).max() <= 0.5 + 1e-6 and np.abs(us[:, 1]).max() <= 1.0 + 1e-6,
+                f"mpccbf_time {i}: inputs out of bounds")
+        require(not collides(xc, CBF_S_COEF[:2], CBF_EY_COEF[:2], L_cbf),
+                f"mpccbf_time {i}: collides with a prescribed car")
+        require(n_k1 == 100, f"mpccbf_time {i}: K1 launched {n_k1} times")
+    p50 = float(np.percentile(samples, 50))
+    emit({"phase": "mpccbf_time", "dtype": "f32", "n_steps": 100, "warm_iters": 20,
+          # the bench's p99 is over 20 starts x 20 runs; of n_samples rollout
+          # means only the median and the largest are reported
+          "starts": rows, "mpccbf_step_latency_p50_ms": p50,
+          "max_ms_per_step": max(samples), "n_samples": len(samples),
+          # the bench's definition: start 0's warm iterations over p50 x steps
+          "cbf_newton_iters_per_s": rows[0]["warm_iterations"] / (p50 * 100 / 1e3)})
+
+    # ---- ilqr_time: the bench's f32 shapes, two starts, 60 steps, cold and warm
+    bench = spread["ilqr_bench_f32"]
+    ilqr_starts = (np.array([0.1, 0, 0, 0, 0, 0])
+                   + 0.02 * np.random.default_rng(2).standard_normal((8, 6)))[:2]
+    ilqr_starts = [start(x0, f32) for x0 in ilqr_starts]
+    ilqr_run(ilqr_starts[0], 2, False)  # warm-up
+    out = {"phase": "ilqr_time", "dtype": "f32", "n_steps": 60}
+    for warm in (False, True):
+        mode = "warm" if warm else "cold"
+        rows, samples = [], []
+        for i, x0 in enumerate(ilqr_starts):
+            k1.launches = 0
+            (xc, us, its), ms = timed(lambda: ilqr_run(x0, 60, warm))
+            n_k1 = k1.launches
+            xc, its = xc.cpu().numpy(), its.cpu().numpy()
+            samples.append(ms / 60)
+            rows.append({"start": i, "ms_per_step": ms / 60,
+                         "levenberg_iterations": int(its.sum()),
+                         "jax_f32_levenberg_iterations":
+                             bench["starts"][i][mode]["levenberg_iterations"],
+                         "ms_per_levenberg_iteration": ms / int(its.sum()),
+                         "max_abs_ey": float(np.abs(xc[:, 5]).max()), "k1_launches": n_k1})
+            require(np.isfinite(xc).all() and bool(us.isfinite().all()),
+                    f"ilqr_time {mode} {i}: non-finite")
+            require(rows[-1]["max_abs_ey"] < 1.0, f"ilqr_time {mode} {i}: leaves the track")
+            require(not collides(xc, [ILQR_OBS_S], [ILQR_OBS_EY], L_ell),
+                    f"ilqr_time {mode} {i}: collides with the prescribed car")
+            require(n_k1 == 60, f"ilqr_time {mode} {i}: K1 launched {n_k1} times")
+        p50 = float(np.percentile(samples, 50))
+        out[mode] = {"starts": rows, "ilqr_step_latency_p50_ms": p50,
+                     "max_ms_per_step": max(samples), "n_samples": len(samples)}
+        if not warm:  # the bench's definition: start 0's iterations over p50 x steps
+            out["ilqr_levenberg_iters_per_s"] = rows[0]["levenberg_iterations"] / (p50 * 60 / 1e3)
+    emit(out)
+
+    paths = {"mpccbf_5_steps": lambda: cbf_run(cbf_starts[0], 5),
+             "ilqr_5_steps": lambda: ilqr_run(ilqr_starts[0], 5, False)}
+    return {"mpccbf": cbf_k1, "ilqr": ilqr_k1}, paths
+
+
 def run():
     import torch
 
@@ -456,7 +681,7 @@ def run():
             torch.cuda.synchronize()
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             finite = all(bool(g.isfinite().all()) for g in got)
-            k1_err[(name, case)] = err
+            k1_err[(name, f"{case}_B256")] = err
             emit({"phase": "k1_check", "dtype": name, "case": case, "B": 256,
                   "control_dt": control_dt, "max_abs_err": err, "bound": bound})
             require(finite and err <= bound, f"K1 {name} {case}: max_abs_err {err} > {bound}")
@@ -644,7 +869,12 @@ def run():
     learning_fleet = learning_phases(dev, setup, lap_spread, golden_laps["l_shape"],
                                      lap_runs["l_shape"])
 
-    # ---- 8. MPC-LTI fleet, f32: K1's main path ------------------------------
+    # ---- 8. the obstacle-avoidance controllers, through K1 ---------------------
+    with open("data/goldens/controller_spread.json") as f:
+        controller_spread = json.load(f)
+    controller_k1, controller_paths = controller_phases(dev, controller_spread)
+
+    # ---- 9. MPC-LTI fleet, f32: K1's main path ------------------------------
     fleet = setup("l_shape", 0.8, f32)
     B, n_steps = 256, 100
     xc0 = torch.as_tensor(np.array([0.1, 0, 0, 0, 0, 0]) + 0.05 * np.random.default_rng(
@@ -672,7 +902,7 @@ def run():
     require(lane0 <= 1e-3, f"fleet: lane 0 differs from its single-lane rollout by {lane0}")
     require(fleet_k1 == n_steps, f"fleet: K1 launched {fleet_k1} times, not {n_steps}")
 
-    # ---- 9. corridor sweep, f32: K2's main path -----------------------------
+    # ---- 10. corridor sweep, f32: K2's main path -----------------------------
     S, N = 64, 10
     inputs = overtake.corridor_sweep_inputs(S, N, seed=0, dtype=f32, device=dev)
     overtake.corridor_sweep(*inputs, num_horizon=N)  # warm-up
@@ -714,7 +944,7 @@ def run():
     require(sweep_k2 == int(it.max()) + 1 or sweep_k2 == 30,
             f"sweep: {sweep_k2} K2 launches for a slowest branch of {int(it.max())} iterations")
 
-    # ---- 10. 256 LMPC QPs through solve_qp_batch, f64: K3's main path --------
+    # ---- 11. 256 LMPC QPs through solve_qp_batch, f64: K3's main path --------
     kw = dict(device=dev, dtype=f64)
     sd = fixtures.load_lmpc_seed("l_shape", **kw)
     tr_l = track.load_track("l_shape", width=1.0, **kw)
@@ -771,9 +1001,10 @@ def run():
     require(eq_k3 == runs and eq_k2 == 0,
             f"eq_batch: {eq_k3} K3 and {eq_k2} K2 launches for {runs} iterations")
 
-    # ---- 11. kernel timings at the paths' shapes ------------------------------
-    # K1 at the fleet's B = 256 in f32, the LMPC step's B = 1 and the
-    # learning fleet's B = 64 in f64 (and 256); a call is 100 dependent
+    # ---- 12. kernel timings at the paths' shapes ------------------------------
+    # K1 at the fleet's B = 256 and the MPC-CBF and iLQR bench's B = 1 in
+    # f32, the LMPC and controller goldens' B = 1 and the learning fleet's
+    # B = 64 in f64 (and 256); a call is 100 dependent
     # substeps, so ns_per_substep is the time one substep takes on the
     # kernel's critical path
     tr, bike = fleet[0], fleet[1]
@@ -782,19 +1013,30 @@ def run():
     args64 = [a.to(f64) for a in (xg, xcs, u)]
     k1_times = {}
     for name, B, args in (("f32", 256, (tr, bike, xg, xcs, u)),
+                          ("f32", 1, (tr, bike, *(a[:1].contiguous() for a in (xg, xcs, u)))),
                           ("f64", 1, (gold[0], gold[1], *(a[:1].contiguous() for a in args64))),
                           ("f64", 64, (gold[0], gold[1], *(a[:64].contiguous() for a in args64))),
                           ("f64", 256, (gold[0], gold[1], *args64))):
+        # each shape against the plain loop too, at k1_check's nominal bounds:
+        # at B = 1 all but one lane pair of the warp take the kernel's tail branch
+        got, want = k1.propagate(*args), k1.plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        finite = all(bool(g.isfinite().all()) for g in got)
+        bound = 2e-6 if name == "f32" else 1e-9
+        k1_err[(name, f"B{B}")] = err
+        require(finite and err <= bound, f"K1 {name} B={B}: max_abs_err {err} > {bound}")
         ms = cuda_ms(lambda: k1.propagate(*args), 50)
         device_ms = kernel_device_ms(lambda: k1.propagate(*args), "propagate_kernel")
         plain_ms = cuda_ms(lambda: k1.plain(*args), 3, 1)
-        bound, by, nbytes, ops = k1_bound_ms(B, tr.num_segments, 100, 4 if name == "f32" else 8)
-        k1_times[(name, B)] = (ms, device_ms, plain_ms, bound, by)
+        bound_ms, by, nbytes, ops = k1_bound_ms(B, tr.num_segments, 100,
+                                                4 if name == "f32" else 8)
+        k1_times[(name, B)] = (ms, device_ms, plain_ms, bound_ms, by)
         emit({"phase": "time_k1", "B": B, "dtype": name, "n_sub": 100, "ms": ms,
               "device_ms": device_ms,
               "ns_per_substep": None if device_ms is None else device_ms * 1e6 / 100,
-              "plain_ms": plain_ms,
-              "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops})
+              "plain_ms": plain_ms, "max_abs_err": err, "atol": bound,
+              "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes, "ops": ops})
     k1_ms, k1_device_ms, k1_plain_ms, k1_bound, k1_by = k1_times[("f32", 256)]
 
     def library(A, rhs):
@@ -846,13 +1088,14 @@ def run():
     emit({"phase": "time_k3", "B": 1, "n": 68, "r": 8, "dtype": "f64",
           "device_ms": kernel_device_ms(lambda: k3.solve_multi(A1, B1), "cholesky_solve_kernel")})
 
-    # ---- 12. where the time goes: device busy share under torch.profiler ----
+    # ---- 13. where the time goes: device busy share under torch.profiler ----
     paths = {
         "fleet_5_steps": lambda: fused.rollout_mpc_tracking_batch(*fleet, xc0, xg0, n_steps=5),
         "sweep": lambda: overtake.corridor_sweep(*inputs, num_horizon=N),
         "lmpc_lap_5_steps": lambda: lmpc_lap("l_shape", 5, f64, None),
         "eq_batch": lambda: ipm.solve_qp_batch(qp, z0, iters=40),
         "learning_fleet_5_steps": lambda: learning_fleet(5),
+        **controller_paths,
     }
     # both untraced times before any trace: a sweep timed right after the
     # fleet's trace read twice its phase-6 time on the H100
@@ -864,8 +1107,14 @@ def run():
     emit({"kernels": [
         {"name": "propagate", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/propagate.cu",
-         "replaces": "car_racing_tpu/ops/pallas_kernels.py:436", "launches": fleet_k1,
-         "max_abs_err": k1_err[("f32", "nominal")], "ms": k1_ms, "device_ms": k1_device_ms,
+         "replaces": "car_racing_tpu/ops/pallas_kernels.py:436",
+         "launches": fleet_k1 + sum(controller_k1.values()),
+         "launches_by_path": {"mpc_lti_fleet": fleet_k1, **controller_k1},
+         # the worst of every K1 comparison in this run; by shape below
+         "max_abs_err": max(k1_err.values()),
+         "max_abs_err_by_shape": {f"{d}_{c}": e for (d, c), e in k1_err.items()},
+         "ms_by_shape": {f"{d}_B{B}": v[0] for (d, B), v in k1_times.items()},
+         "ms": k1_ms, "device_ms": k1_device_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "cholesky_solve", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/cholesky_solve.cu",

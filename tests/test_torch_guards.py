@@ -16,6 +16,7 @@ from car_racing_tpu_torch.kernels import cholesky as k2, propagate as k1
 from car_racing_tpu_torch.models import controllers
 from car_racing_tpu_torch.ops import dynamics, track
 from car_racing_tpu_torch.planning import overtake
+from car_racing_tpu_torch.racing import fused
 from car_racing_tpu_torch.utils import convert, fixtures, params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,6 +70,8 @@ ENTRY_POINTS = {
     "MPCParam.default": lambda: params.MPCParam.default(),
     "SystemParam.default": lambda: params.SystemParam.default(),
     "LMPCParam.default": lambda: params.LMPCParam.default(),
+    "MPCCBFParam.default": lambda: params.MPCCBFParam.default(),
+    "ILQRParam.default": lambda: params.ILQRParam.default(),
     "load_lmpc_seed": lambda: fixtures.load_lmpc_seed("l_shape"),
     "CarParam.default": lambda: params.CarParam.default(),
     "load_lti": lambda: params.load_lti(),
@@ -179,3 +182,41 @@ def test_cuda_tensor_launches_kernel_or_raises_never_plain(kernel, monkeypatch):
     assert mod.launches == 0
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fn(torch.empty(3, 5, 5, device="meta"), torch.empty(rhs, device="meta"))
+
+
+def _obstacle_rollout(name):
+    kw = dict(device="cpu", dtype=F64)
+    t = lambda a: torch.tensor(a, **kw)
+    zeros, half = torch.zeros(6, **kw), t([0.2, 0.1])
+    if name == "mpccbf":
+        return fused.rollout_mpccbf(
+            track.load_track("l_shape", width=1.0, **kw), dynamics.BicycleParams.default(**kw),
+            params.MPCCBFParam.default(vt=0.8, **kw), params.SystemParam.default(**kw),
+            t([0.8, 0, 0, 0, 0, 0]), zeros, zeros, t([[0.2, 4.0]]), t([[0.0, 0.1]]),
+            torch.tensor([True]), half[None], half, n_steps=2)
+    return fused.rollout_ilqr(
+        track.load_track("ellipse", width=1.0, **kw), dynamics.BicycleParams.default(**kw),
+        params.ILQRParam.default(vt=0.8, **kw), t([0.8, 0, 0, 0, 0, 0]), zeros, zeros,
+        t([0.2, 5.0]), t([0.0, 0.1]), half, half, n_steps=2)
+
+
+@pytest.mark.parametrize("name", ["mpccbf", "ilqr"])
+def test_obstacle_rollouts_send_card_states_to_k1(name, monkeypatch):
+    """The MPC-CBF and iLQR rollouts step their vehicle through K1's
+    wrapper; a state on the card reaches the kernel's checks and launch (here
+    refused: the track stayed on the CPU), never the plain loop."""
+    real, calls = k1.propagate, []
+
+    def on_card(tr, bike, xglob, xcurv, u, *args):
+        calls.append(tuple(xcurv.shape))
+        return real(tr, bike, _OnCard(xglob), _OnCard(xcurv), _OnCard(u), *args)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a CUDA tensor")
+
+    monkeypatch.setattr(k1, "propagate", on_card)
+    monkeypatch.setattr(k1, "plain", no_plain)
+    k1.launches = 0
+    with pytest.raises(ValueError, match="track is torch.float64 on cpu; K1 needs"):
+        _obstacle_rollout(name)
+    assert calls == [(1, 6)] and k1.launches == 0
