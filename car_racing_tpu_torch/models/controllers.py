@@ -1,13 +1,13 @@
 """Controllers (car_racing_tpu/models/controllers.py:38-139, 147-580,
 674-809).
 
-Ported so far: :func:`target_state`, :func:`pid`, MPC-LTI with the dense
-condensed KKT (``kkt="dense"``), LMPC, MPC-CBF (:func:`mpccbf` with
-:func:`obstacle_gate_mask` and :func:`shift_cbf_warm`), the racing game's
-tracker (:func:`mpc_multi_agents`) and iLQR (:func:`ilqr`).  Every
-function but :func:`ilqr`, which solves for one vehicle as the JAX function
-does, takes a leading batch of vehicles; the Riccati variants of MPC-LTI
-are not ported yet.
+Ported so far: :func:`target_state`, :func:`pid`, :func:`lqr`, MPC-LTI
+(:func:`mpc_lti`) with its dense condensed KKT and its two Riccati KKT
+paths, LMPC, MPC-CBF (:func:`mpccbf` with :func:`obstacle_gate_mask` and
+:func:`shift_cbf_warm`), the racing game's tracker
+(:func:`mpc_multi_agents`) and iLQR (:func:`ilqr`).  Every function but
+:func:`ilqr`, which solves for one vehicle as the JAX function does, takes
+a leading batch of vehicles.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from ..ops import ipm, ocp, riccati
 from ..utils.constants import U_DIM, X_DIM
 from ..utils.device import resolve
-from ..utils.params import ILQRParam, LMPCParam, MPCCBFParam, MPCParam, SystemParam
+from ..utils.params import ILQRParam, LMPCParam, LQRParam, MPCCBFParam, MPCParam, SystemParam
 
 
 def target_state(vt, eyt, *, device="cuda", dtype=torch.float64):
@@ -33,6 +33,14 @@ def pid(xcurv: torch.Tensor, xtarget: torch.Tensor) -> torch.Tensor:
     delta = -0.6 * (xcurv[..., 5] - xtarget[..., 5]) - 0.9 * xcurv[..., 3]
     a = 1.5 * (xtarget[..., 0] - xcurv[..., 0])
     return torch.stack([delta, a], dim=-1)
+
+
+def lqr(xcurv: torch.Tensor, xtarget: torch.Tensor, param: LQRParam) -> torch.Tensor:
+    """LQR tracking of a batch of states ``xcurv (Bt, 6)``: ``-K (x -
+    xtarget)`` with the gain of :func:`riccati.dare_iterate`
+    (controllers.py:59-62), computed anew each call as there."""
+    _, K = riccati.dare_iterate(param.A, param.B, param.Q, param.R, param.max_iter)
+    return ((-K) @ (xcurv - xtarget).unsqueeze(-1)).squeeze(-1)
 
 
 def _tracking_qp(param: MPCParam, sys_param: SystemParam, track_width, x0, xtarget):
@@ -66,17 +74,42 @@ def mpc_lti(
     track_width: torch.Tensor,
     u_warm: torch.Tensor | None = None,
     return_traj: bool = False,
+    kkt: str = "dense",
+    solves: list | None = None,
 ):
     """MPC tracking QP for a batch of states ``xcurv (Bt, 6)``: LTI
     dynamics, box input/state rows, track width.  ``u_warm (Bt, N*2)``
-    warm-starts the interior point.
+    warm-starts the interior point.  ``kkt`` picks the Newton step's
+    factorization: ``"dense"`` condenses onto U and factors the (N*2)^2
+    system; ``"riccati"`` solves the same QP through the stage-structured
+    path of ``ipm.solve_ocp_qp``, one Riccati sweep per iteration;
+    ``"riccati_parallel"`` takes that sweep's associative-scan form.  If
+    ``solves`` is a list, the interior point's ``IPMSolution`` is appended
+    to it.
 
     Returns u_0 (Bt, 2), and with ``return_traj`` also the open-loop inputs
     U (Bt, N, 2) and states X (Bt, N+1, 6)."""
     N = param.num_horizon
+    if kkt in ("riccati", "riccati_parallel"):
+        Bt = xcurv.shape[0]
+        u_min = torch.stack([-sys_param.delta_max, -sys_param.a_max])
+        u_max = torch.stack([sys_param.delta_max, sys_param.a_max])
+        U0 = (u_warm.reshape(Bt, N, U_DIM) if u_warm is not None
+              else xcurv.new_zeros(Bt, N, U_DIM))
+        U, X, sol = ipm.solve_ocp_qp(
+            param.A, param.B, param.Q, param.R, xcurv, xtarget, u_min, u_max, sys_param.v_min,
+            sys_param.v_max, torch.as_tensor(track_width, dtype=xcurv.dtype, device=xcurv.device),
+            U0, num_horizon=N, iters=30, stage_parallel=kkt == "riccati_parallel")
+        if solves is not None:
+            solves.append(sol)
+        return (U[:, 0], U, X) if return_traj else U[:, 0]
+    if kkt != "dense":
+        raise ValueError(f"unknown kkt {kkt!r}")
     qp, phi, G = _tracking_qp(param, sys_param, track_width, xcurv, xtarget)
     z0 = u_warm if u_warm is not None else qp.g.new_zeros(xcurv.shape[0], N * U_DIM)
     sol = ipm.solve_qp(qp, z0, iters=30)
+    if solves is not None:
+        solves.append(sol)
     U = sol.z.reshape(-1, N, U_DIM)
     if return_traj:
         X = ocp.unpack_states(phi, G, sol.z, xcurv)

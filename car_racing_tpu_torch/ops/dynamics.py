@@ -1,5 +1,5 @@
 """Dynamic bicycle model with Pacejka tire forces
-(car_racing_tpu/ops/dynamics.py:29-196).
+(car_racing_tpu/ops/dynamics.py:29-262).
 
 Every function takes a leading batch of vehicles: ``xglob``, ``xcurv`` are
 ``(B, 6)`` and ``u`` is ``(B, 2)``.  The expressions keep the JAX package's
@@ -139,3 +139,56 @@ def propagate(
     if backend not in ("auto", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     return k1.propagate(track, params, xglob, xcurv, u, control_dt, sub_dt)
+
+
+NOISE_SCALE = (0.01, 0.01, 0.005)  # (vx, vy, wz) standard deviations
+NOISE_CLIP = (0.05, 0.1, 0.05)
+
+
+def process_noise(generator: torch.Generator, xcurv: torch.Tensor) -> torch.Tensor:
+    """Truncated-Gaussian process noise on (vx, vy, wz) of a ``(B, 6)``
+    batch (dynamics.py:199-211): ``0.5 * clip(N(0, 1) * scale, -clip,
+    clip)`` added to the first three states.  ``generator`` (on
+    ``xcurv``'s device) draws the normals; ``jax.random``'s stream cannot
+    be reproduced, so only the distribution matches the JAX package's."""
+    z = torch.randn(xcurv.shape[:-1] + (3,), generator=generator, dtype=xcurv.dtype,
+                    device=xcurv.device)
+    scale = z.new_tensor(NOISE_SCALE)
+    clip = z.new_tensor(NOISE_CLIP)
+    noise = torch.clamp(z * scale, -clip, clip)
+    return torch.cat([xcurv[..., :3] + 0.5 * noise, xcurv[..., 3:]], dim=-1)
+
+
+def const_velocity_prediction(track: track_ops.Track, xcurv, xglob, dt, n_steps: int):
+    """``n_steps``-step constant-velocity prediction of ``(..., 6)`` states
+    (dynamics.py:225-262): velocities frozen, the Frenet and global
+    kinematics integrated at the control period, s wrapped onto the lap.
+    Returns (xcurv_traj, xglob_traj), each ``(..., n_steps, 6)``, row 0
+    the given state."""
+    xcs, xgs = [], []
+    xc, xg = xcurv, xglob
+    for _ in range(n_steps):
+        xcs.append(xc)
+        xgs.append(xg)
+        vx, vy, wz, epsi, s, ey = xc.unbind(-1)
+        curv = track_ops.curvature(track, s)
+        den = 1.0 - curv * ey
+        s_dot = (vx * torch.cos(epsi) - vy * torch.sin(epsi)) / den
+        xc = torch.stack([
+            vx,
+            vy,
+            wz,
+            epsi + dt * (wz - s_dot * curv),
+            torch.remainder(s + dt * s_dot, track.lap_length),
+            ey + dt * (vx * torch.sin(epsi) + vy * torch.cos(epsi)),
+        ], dim=-1)
+        gvx, gvy, gwz, psi, X, Y = xg.unbind(-1)
+        xg = torch.stack([
+            gvx,
+            gvy,
+            gwz,
+            psi + dt * gwz,
+            X + dt * (gvx * torch.cos(psi) - gvy * torch.sin(psi)),
+            Y + dt * (gvx * torch.sin(psi) + gvy * torch.cos(psi)),
+        ], dim=-1)
+    return torch.stack(xcs, dim=-2), torch.stack(xgs, dim=-2)

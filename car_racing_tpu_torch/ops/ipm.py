@@ -1,10 +1,12 @@
 """Primal-dual interior point for dense convex QPs
-(car_racing_tpu/ops/ipm.py:87-160, 346-579, 816-972).
+(car_racing_tpu/ops/ipm.py:44-61, 87-160, 346-972).
 
     min 1/2 z'Hz + g'z   s.t.   C z >= d,   E z = e
 
 and, in :func:`solve_qp_nl`, with nonlinear rows ``c_nl(z) >= 0`` in place
-of the equality rows.
+of the equality rows; :func:`solve_ocp_qp` solves the tracking OCP with one
+Riccati sweep per Newton step.  Every solver runs under :func:`_highp`:
+full float32 precision for matrix products, whatever the caller set.
 
 Every QP field carries a leading batch dimension, so a fleet or a branch
 sweep is one call.  Both solvers run the JAX package's iteration: each
@@ -34,11 +36,36 @@ The two solvers differ where the JAX package's do:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..kernels import cholesky, cholesky_multi
+from . import riccati
+
+
+def _highp(fn):
+    """Run ``fn`` with full float32 precision for matrix products
+    (``torch.set_float32_matmul_precision("highest")``: no TF32) and give
+    the caller's setting back on exit, also after an exception
+    (ipm.py:44-61 pins ``jax.default_matmul_precision("float32")``).
+    Interior-point iterations are ill-conditioned: TF32's 10-bit mantissa
+    moves the Newton directions enough to change the active set.  A nested
+    call finds "highest" already set and costs one read of a host flag."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        prev = torch.get_float32_matmul_precision()
+        if prev == "highest":
+            return fn(*args, **kwargs)
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+    return wrapped
 
 GRADE_QP = 1e3  # `converged` reports res < GRADE_QP * tol (ipm.py:63-87)
 
@@ -222,12 +249,14 @@ def _solve(qp: QP, z0, iters, tol, ridge, newton) -> IPMSolution:
     )
 
 
+@_highp
 def solve_qp(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | None = None) -> IPMSolution:
     """The dense-QP interior point of ``ipm.solve_qp``, for a batch of
     problems, each as if solved alone (the JAX fleet ``vmap``s it)."""
     return _solve(qp, z0, iters, tol, 1e-10, _newton_lu)
 
 
+@_highp
 def solve_qp_batch(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | None = None,
                    backend: str = "auto") -> IPMSolution:
     """``ipm.solve_qp_batch``: the Newton systems of the whole batch go
@@ -246,6 +275,7 @@ def solve_qp_batch(qp: QP, z0: torch.Tensor, *, iters: int = 30, tol: float | No
 GRADE_NL = 1e2  # solve_qp_nl's `converged` reports res < GRADE_NL * tol (ipm.py:77-81)
 
 
+@_highp
 def solve_qp_nl(H, g, C, d, c_nl, z0, *, lam0=None, s0=None, iters: int = 40,
                 tol: float | None = None, warm_if=None, iters_cap=None) -> IPMSolution:
     """``ipm.solve_qp_nl`` (ipm.py:816-972) for a batch of problems
@@ -356,3 +386,154 @@ def solve_qp_nl(H, g, C, d, c_nl, z0, *, lam0=None, s0=None, iters: int = 40,
         kkt_res=res,
         iterations=torch.where(done_iter < 0, cap, done_iter).to(torch.int32),
     )
+
+
+@_highp
+def solve_ocp_qp(A, B, Q, R, x0, xtarget, u_min, u_max, v_min, v_max, ey_bound, U0, *,
+                 num_horizon: int = 10, iters: int = 30, tol: float | None = None,
+                 stage_parallel: bool = False):
+    """``ipm.solve_ocp_qp`` (ipm.py:593-807): the tracking QP of
+    ``controllers.mpc_lti`` (cost ``sum_k (x_k - xt)' Q (x_k - xt) + u_k' R
+    u_k``, LTI dynamics, the input box, ``v_min <= x_k[0] <= v_max`` and
+    ``|x_k[5]| <= ey_bound`` at stages 1..N), each Newton step one TV-LQR
+    Riccati sweep of the barrier-augmented stage costs instead of a dense
+    factorization.  (X, U) start on a rollout of U0 and the Newton
+    directions keep the dynamics, so they hold for any step length.
+
+    A batch of problems, each as if solved alone (the JAX function under
+    ``vmap``): x0 (Bt, n), xtarget (n,) or (Bt, n), U0 (Bt, N, m); A, B, Q,
+    R, the bounds and ``ey_bound`` are shared.  A problem freezes at its
+    first iterate with a KKT residual under ``tol`` or where its Newton
+    step turns non-finite; the loop ends when every problem has converged,
+    reading one flag back to the host per iteration, or after ``iters``.
+    ``stage_parallel`` takes the associative-scan forms of both halves of
+    the Newton step (O(log N) depth per iteration).
+
+    Returns (U (Bt, N, m), X (Bt, N+1, n), IPMSolution with ``z = U``
+    flattened per problem)."""
+    N = num_horizon
+    Bt, n = x0.shape
+    m = B.shape[1]
+    dtype, dev = x0.dtype, x0.device
+    if tol is None:
+        tol = 1e-8 if dtype == torch.float64 else 1e-3
+    eps_div, mu_floor = _eps_for(dtype)
+    sigma_cap = _sigma_cap(dtype)
+    tau = 0.995
+    e0 = x0.new_zeros(n)
+    e0[0] = 1.0
+    e5 = x0.new_zeros(n)
+    e5[5] = 1.0
+    xt = xtarget.unsqueeze(-2)  # against the stages' (Bt, N, n)
+    backward = riccati.tvlqr_backward_parallel if stage_parallel else riccati.tvlqr_backward
+    rollout_fn = riccati.tvlqr_rollout_parallel if stage_parallel else riccati.tvlqr_rollout
+    sizes = (N * m, N * m, N, N, N, N)
+
+    def rollout(U):
+        xs = [x0]
+        for k in range(N):
+            xs.append(_bmv(A, xs[-1]) + _bmv(B, U[:, k]))
+        return torch.stack(xs, dim=1)  # (Bt, N+1, n)
+
+    def c_of(X, U):
+        """The row groups, each >= 0 when feasible: u lower and upper
+        (Bt, N, m), vx lower and upper, ey lower and upper (Bt, N)."""
+        Xs = X[:, 1:]
+        return (U - u_min, u_max - U, Xs[..., 0] - v_min, v_max - Xs[..., 0],
+                Xs[..., 5] + ey_bound, ey_bound - Xs[..., 5])
+
+    flat = lambda groups: torch.cat([g.reshape(Bt, -1) for g in groups], dim=1)
+
+    def unflat(v):
+        parts = torch.split(v, sizes, dim=1)
+        return tuple(p.reshape(Bt, N, m) if i < 2 else p for i, p in enumerate(parts))
+
+    def kkt_res(X, U, s, lam):
+        """The reduced gradient (costates propagated backward), the row
+        residuals and complementarity, inf-norm per problem."""
+        ci = flat(c_of(X, U))
+        l_ulo, l_uhi, l_vlo, l_vhi, l_elo, l_ehi = unflat(lam)
+        gL_u = 2.0 * U @ R.mT - (l_ulo - l_uhi)
+        gx = 2.0 * (X[:, 1:] - xt) @ Q.mT
+        gx = gx - (l_vlo - l_vhi)[..., None] * e0 - (l_elo - l_ehi)[..., None] * e5
+        p = x0.new_zeros(Bt, n)
+        gus = [None] * N
+        for k in reversed(range(N)):
+            p = gx[:, k] + _bmv(A.mT, p)  # costate p_{k+1}
+            gus[k] = gL_u[:, k] + _bmv(B.mT, p)  # reduced gradient for u_k
+        red_grad = torch.stack(gus, dim=1).reshape(Bt, -1)
+        return torch.cat([red_grad.abs(), (ci - s).abs(), (s * lam).abs()], dim=1).amax(dim=1)
+
+    U = U0
+    X = rollout(U)
+    ci0 = flat(c_of(X, U))
+    M = ci0.shape[1]
+    s = ci0.clamp_min(1e-2)
+    lam = 0.1 / s
+    mu = torch.full((Bt,), 1e-1, dtype=dtype, device=dev)
+    reg = torch.tensor(1e-9 if dtype == torch.float64 else 1e-7, dtype=dtype, device=dev)
+    A_stack = A.expand(Bt, N, n, n)
+    B_stack = B.expand(Bt, N, n, m)
+    zeros = (x0.new_zeros(Bt, n), x0.new_zeros(Bt, N, m), x0.new_zeros(Bt, N, n))
+    done_iter = torch.full((Bt,), -1, dtype=torch.int32, device=dev)
+
+    for k in range(iters):
+        active = done_iter < 0
+        if k and not bool(active.any()):
+            break
+        ci = flat(c_of(X, U))
+        converged_now = kkt_res(X, U, s, lam) < tol
+        done_iter = torch.where(active & converged_now, k, done_iter)
+
+        s_safe = s.clamp_min(eps_div)
+        sl = (lam / s_safe).clamp_max(sigma_cap)
+        r_bar = (mu[:, None] - s * lam) / s_safe - sl * (ci - s)
+        sl_g, r_g, lam_g = unflat(sl), unflat(r_bar), unflat(lam)
+
+        # the barrier-augmented stage costs of the Newton TV-LQR
+        luu = 2.0 * R + torch.diag_embed(sl_g[0] + sl_g[1])  # (Bt, N, m, m)
+        gL_u = 2.0 * U @ R.mT - (lam_g[0] - lam_g[1])
+        lu = gL_u - (r_g[0] - r_g[1])  # = -g_bar_u
+        sx_diag = (sl_g[2] + sl_g[3])[..., None] * e0 + (sl_g[4] + sl_g[5])[..., None] * e5
+        lxx_stage = 2.0 * Q + torch.diag_embed(sx_diag)  # (Bt, N, n, n) for x_1..x_N
+        gL_x = 2.0 * (X[:, 1:] - xt) @ Q.mT
+        gL_x = gL_x - (lam_g[2] - lam_g[3])[..., None] * e0 - (lam_g[4] - lam_g[5])[..., None] * e5
+        lx_stage = gL_x - (r_g[2] - r_g[3])[..., None] * e0 - (r_g[4] - r_g[5])[..., None] * e5
+
+        # stage k of the TV-LQR carries the cost on x_k: x_0 is fixed,
+        # x_1..x_{N-1} are interior stages, x_N is the terminal value
+        l_x = torch.cat([x0.new_zeros(Bt, 1, n), lx_stage[:, :N - 1]], dim=1)
+        l_xx = torch.cat([x0.new_zeros(Bt, 1, n, n), lxx_stage[:, :N - 1]], dim=1)
+        ks, Ks = backward(A_stack, B_stack, l_x, lu, l_xx, luu, lx_stage[:, N - 1],
+                          lxx_stage[:, N - 1], reg)
+        dX, dU = rollout_fn(A, B, *zeros, ks, Ks)
+
+        Jdz = flat((dU, -dU, dX[:, 1:, 0], -dX[:, 1:, 0], dX[:, 1:, 5], -dX[:, 1:, 5]))
+        ds = Jdz + (ci - s)
+        dlam = r_bar - sl * Jdz
+        a_s, a_l = _max_step(ds, s, tau), _max_step(dlam, lam, tau)
+
+        # non-finite step guard: freeze a problem whose Riccati sweep went
+        # non-finite at its last finite iterate
+        ok = (dX.isfinite().all(dim=2).all(dim=1) & dU.isfinite().all(dim=2).all(dim=1)
+              & ds.isfinite().all(dim=1) & dlam.isfinite().all(dim=1))
+        upd = active & ~converged_now & ok
+        u1 = upd[:, None]
+        X = torch.where(u1[..., None], X + a_s[:, None, None] * dX, X)
+        U = torch.where(u1[..., None], U + a_s[:, None, None] * dU, U)
+        s = torch.where(u1, s + a_s[:, None] * ds, s)
+        lam = torch.where(u1, lam + a_l[:, None] * dlam, lam)
+        duality = (s * lam).sum(dim=1) / M
+        mu = torch.where(upd, (0.1 * duality).clamp_min(mu_floor), mu)
+
+    res = kkt_res(X, U, s, lam)
+    sol = IPMSolution(
+        z=U.reshape(Bt, -1),
+        lam=lam,
+        nu=x0.new_zeros(Bt, 0),
+        s=s,
+        converged=res < tol * GRADE_QP,
+        kkt_res=res,
+        iterations=torch.where(done_iter < 0, iters, done_iter).to(torch.int32),
+    )
+    return U, X, sol

@@ -6,7 +6,8 @@ The JAX package fuses the receding-horizon loop into one ``lax.scan`` and
 steps, and the fleet is the batch dimension of every call inside it: one
 MPC-LTI or LMPC solve for all lanes, then one launch of the integrator
 kernel K1.  The obstacle-avoidance rollouts (MPC-CBF, iLQR) drive one
-vehicle, as the JAX ones do.
+vehicle, as the JAX ones do.  Every rollout runs under ``ipm._highp``
+(full float32 matrix products), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ import torch
 
 from ..models import controllers
 from ..ops import bezier, dynamics, lmpc_learning, track as track_ops
+from ..ops.ipm import _highp
 from ..planning import overtake
 from ..utils.constants import U_DIM, X_DIM
 
 
+@_highp
 def rollout_mpc_tracking_batch(
     track,
     bike_params,
@@ -60,6 +63,7 @@ def rollout_mpc_tracking_batch(
     return torch.stack(xcurvs, dim=1), torch.stack(us, dim=1)
 
 
+@_highp
 def rollout_mpc_tracking(
     track,
     bike_params,
@@ -81,6 +85,7 @@ def rollout_mpc_tracking(
     return xc[0], us[0]
 
 
+@_highp
 def rollout_lmpc_lap(
     track,
     bike_params,
@@ -209,6 +214,7 @@ def _lanes(mask, new, old):
     return torch.where(mask.view(-1, *[1] * (new.dim() - 1)), new, old)
 
 
+@_highp
 def rollout_lmpc_learning_batch(
     track,
     bike_params,
@@ -358,6 +364,7 @@ def rollout_lmpc_learning_batch(
             lap_idx.to(torch.int32))
 
 
+@_highp
 def rollout_lmpc_learning(
     track,
     bike_params,
@@ -423,6 +430,7 @@ def _forecast(coef_s, coef_ey, t, N, control_dt):
     return torch.stack([vs, vey, zeros, zeros, s, ey], dim=-1)
 
 
+@_highp
 def rollout_mpccbf(
     track,
     bike_params,
@@ -504,6 +512,7 @@ def rollout_mpccbf(
             stack(its, torch.zeros(0, dtype=torch.int32, device=dev)))
 
 
+@_highp
 def rollout_ilqr(
     track,
     bike_params,
@@ -905,6 +914,7 @@ def racing_game_step(game: RacingGame, carry: RacingCarry, k: int, solves: list 
     return nxt, (xcurv, u, ot & ~done, done)
 
 
+@_highp
 def rollout_racing_game_batch(
     track,
     bike_params,
@@ -980,6 +990,7 @@ def rollout_racing_game_batch(
             lap_steps)
 
 
+@_highp
 def rollout_racing_game(
     track,
     bike_params,

@@ -53,6 +53,34 @@ class CarParam:
 
 
 @dataclasses.dataclass(frozen=True)
+class LQRParam:
+    """LQR tracking parameters (car_racing_tpu/utils/params.py:58-81): LTI
+    model and costs, and ``max_iter`` steps of the Riccati iteration."""
+
+    A: torch.Tensor
+    B: torch.Tensor
+    Q: torch.Tensor
+    R: torch.Tensor
+    vt: torch.Tensor
+    eyt: torch.Tensor
+    max_iter: int = 50
+
+    @staticmethod
+    def default(vt=0.6, eyt=0.0, data_dir="data", *, device="cuda",
+                dtype=torch.float64) -> "LQRParam":
+        dev = resolve(device)
+        A, B = load_lti(data_dir, device=dev, dtype=dtype)
+        return LQRParam(
+            A=A,
+            B=B,
+            Q=_t(np.diag([10.0, 0.0, 0.0, 4.0, 0.0, 40.0]), dev, dtype),
+            R=_t(np.diag([0.1, 0.1]), dev, dtype),
+            vt=_t(vt, dev, dtype),
+            eyt=_t(eyt, dev, dtype),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class MPCParam:
     """MPC-LTI tracking parameters."""
 

@@ -33,7 +33,7 @@ beside its bound:
    each step's Levenberg count equal to the JAX run's) in f64, held as
    ``data/goldens/controller_spread.json`` records the reference, and the
    JAX bench's f32 shapes timed from its first start states (three for
-   ``mpccbf_time``, two for ``ilqr_time`` cold and warm);
+   ``mpccbf_time``, two for ``ilqr_time`` cold and warm, 30 steps);
 9. the MPC-LTI fleet: 256 lanes x 100 control steps in f32 (K1's path);
 10. the 256-QP corridor sweep in f32 (K2's path), against the same sweep
     with the plain solve;
@@ -51,8 +51,19 @@ beside its bound:
     (``racing_game``); the JAX package's recorded three-step runs from
     injected states replayed in f64, flags equal and rows within their
     bounds (``racing_game_injected``); the JAX bench's f32 lap from its
-    first three starts (``racing_game_time``); and its f32 fleets of 8 and
+    first two starts (``racing_game_time``); and its f32 fleets of 8 and
     64 lanes (``racing_game_fleet``);
+15. (run after phase 14) the offboard simulator's tracking path and the
+    Riccati KKT path of MPC-LTI: TF32 switched on outside the port, the f32
+    fleet and MPC-CBF bit-equal to their runs without it, and moved by it
+    when the port's pin is disarmed (``tf32_pin``);
+    the host PID loop against ``pid_l_shape`` (``sim_pid``) and the host
+    MPC-LTI loop against the fused rollout and its golden (``sim_mpc``),
+    through the simulator in f64; ``apps/control_test.tracking`` for pid,
+    lqr and mpc-lti, 900 steps each, with their solve latencies, and a
+    noisy PID run (``sim_tracking``); the dense, Riccati and parallel
+    Riccati KKT on 256 states in f64 and f32 (``riccati_kkt``); and their
+    one-state solve times by horizon (``crossover``);
 then the ``kernels`` line, the card's name and power limit, and the ``ok``
 line.
 
@@ -96,6 +107,9 @@ CBF_ACTIVE = [True, True, False, False]
 CBF_HALFS = [[0.2, 0.1], [0.2, 0.1], [1.0, 1.0], [1.0, 1.0]]
 ILQR_OBS_S, ILQR_OBS_EY, HALF = [0.2, 5.0], [0.0, 0.1], [0.2, 0.1]
 CONTROLLER_TARGET = [0.8, 0, 0, 0, 0, 0]
+# iLQR steps of each ilqr_time rollout: the bench's 60 halved to keep the
+# script inside its time limit on a slow host
+ILQR_TIME_STEPS = 30
 # K1's arithmetic per vehicle and substep, each libm call counted as one
 # operation and the segment search at its least (one pair of compares):
 # 3 (wrap) + 2 (search) + 8 (slip angles) + 12 (tire forces) + 13 (dvx, dvy,
@@ -158,10 +172,11 @@ def device_profile(fn, wall_ms):
     union of its kernels' intervals, their count, and the largest by name.
     The idle share is taken against ``wall_ms``, the call's untraced time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from car_racing_tpu_torch.utils.profiling import device_trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(log_dir=None) as prof:
         fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -586,25 +601,26 @@ def controller_phases(dev, spread):
           # the bench's definition: start 0's warm iterations over p50 x steps
           "cbf_newton_iters_per_s": rows[0]["warm_iterations"] / (p50 * 100 / 1e3)})
 
-    # ---- ilqr_time: the bench's f32 shapes, two starts, 60 steps, cold and warm
+    # ---- ilqr_time: the bench's f32 shapes, two starts, cold and warm
     bench = spread["ilqr_bench_f32"]
     ilqr_starts = (np.array([0.1, 0, 0, 0, 0, 0])
                    + 0.02 * np.random.default_rng(2).standard_normal((8, 6)))[:2]
     ilqr_starts = [start(x0, f32) for x0 in ilqr_starts]
     ilqr_run(ilqr_starts[0], 2, False)  # warm-up
-    out = {"phase": "ilqr_time", "dtype": "f32", "n_steps": 60}
+    out = {"phase": "ilqr_time", "dtype": "f32", "n_steps": ILQR_TIME_STEPS}
     for warm in (False, True):
         mode = "warm" if warm else "cold"
         rows, samples = [], []
         for i, x0 in enumerate(ilqr_starts):
             k1.launches = 0
-            (xc, us, its), ms = timed(lambda: ilqr_run(x0, 60, warm))
+            (xc, us, its), ms = timed(lambda: ilqr_run(x0, ILQR_TIME_STEPS, warm))
             n_k1 = k1.launches
             xc, its = xc.cpu().numpy(), its.cpu().numpy()
-            samples.append(ms / 60)
-            rows.append({"start": i, "ms_per_step": ms / 60,
+            samples.append(ms / ILQR_TIME_STEPS)
+            rows.append({"start": i, "ms_per_step": ms / ILQR_TIME_STEPS,
                          "levenberg_iterations": int(its.sum()),
-                         "jax_f32_levenberg_iterations":
+                         # the JAX bench's count is over its 60 steps
+                         "jax_f32_levenberg_iterations_60_steps":
                              bench["starts"][i][mode]["levenberg_iterations"],
                          "ms_per_levenberg_iteration": ms / int(its.sum()),
                          "max_abs_ey": float(np.abs(xc[:, 5]).max()), "k1_launches": n_k1})
@@ -613,12 +629,13 @@ def controller_phases(dev, spread):
             require(rows[-1]["max_abs_ey"] < 1.0, f"ilqr_time {mode} {i}: leaves the track")
             require(not collides(xc, [ILQR_OBS_S], [ILQR_OBS_EY], L_ell),
                     f"ilqr_time {mode} {i}: collides with the prescribed car")
-            require(n_k1 == 60, f"ilqr_time {mode} {i}: K1 launched {n_k1} times")
+            require(n_k1 == ILQR_TIME_STEPS, f"ilqr_time {mode} {i}: K1 launched {n_k1} times")
         p50 = float(np.percentile(samples, 50))
         out[mode] = {"starts": rows, "ilqr_step_latency_p50_ms": p50,
                      "max_ms_per_step": max(samples), "n_samples": len(samples)}
         if not warm:  # the bench's definition: start 0's iterations over p50 x steps
-            out["ilqr_levenberg_iters_per_s"] = rows[0]["levenberg_iterations"] / (p50 * 60 / 1e3)
+            out["ilqr_levenberg_iters_per_s"] = (rows[0]["levenberg_iterations"]
+                                                 / (p50 * ILQR_TIME_STEPS / 1e3))
     emit(out)
 
     paths = {"mpccbf_5_steps": lambda: cbf_run(cbf_starts[0], 5),
@@ -686,7 +703,7 @@ def racing_game_phases(dev, spread):
     every overtake step one K2 launch per corridor IPM iteration: the two
     golden laps in f64 (``racing_game``), the JAX package's short runs from
     injected states replayed in f64 (``racing_game_injected``), the JAX
-    bench's f32 lap from its first three starts (``racing_game_time``) and
+    bench's f32 lap from its first two starts (``racing_game_time``) and
     its f32 fleets of 8 and 64 lanes (``racing_game_fleet``).  ``spread`` is
     ``data/goldens/racing_game_spread.json``.  Returns the K1 and K2
     launches by path, the corridor batch sizes the 64-lane fleet gave K2
@@ -836,13 +853,14 @@ def racing_game_phases(dev, spread):
           "step_atol": RG_STEP_ATOL,
           "after_lmpc_atol": RG_AFTER_LMPC_ATOL, "ms_per_run": inj_ms / len(spread["injected"])})
 
-    # ---- racing_game_time: the bench's f32 lap, three starts ---------------------
+    # ---- racing_game_time: the bench's f32 lap, two starts ---------------------
     bench = spread["bench_f32"]
     s_coef, ey_coef = RG_LAPS["l_shape"][1:]
     traffic32 = (tensor(s_coef, f32), tensor(ey_coef, f32))
     _, _, sd32, _ = setup("l_shape", f32)
     L = float(setup("l_shape", f32)[0][0].lap_length)
-    starts = [tensor(st["xcurv0"], f32) for st in bench["starts"]]
+    # the first two of the bench's starts (the script's time limit)
+    starts = [tensor(st["xcurv0"], f32) for st in bench["starts"][:2]]
     race("l_shape", f32, starts[0], sd32["xglob0"], traffic32, 3)  # warm-up
     rows_out, samples = [], []
     for i, x0 in enumerate(starts):
@@ -946,6 +964,293 @@ def racing_game_phases(dev, spread):
     return k1_by, k2_by, k2_shapes, paths
 
 
+# the tracking simulator's gates (tests/test_sim_tracking.py): the second
+# half's mean vx near the 0.8 target, |ey| inside the track, and for MPC-LTI
+# |ey| small on average and the inputs inside their box
+SIM_VX_TOL = {"pid": 0.1, "lqr": 0.15, "mpc-lti": 0.1}
+SIM_STEPS = 900  # apps/control_test.py's sim_time of 90 s
+CROSSOVER_HORIZONS, CROSSOVER_REPS = (10, 20, 50, 100, 200), (10, 10, 5, 3, 2)
+# the longest horizon at which the f32 dense condensed solve converges: from
+# N = 100 its KKT residual stays at 1e6 and above after 30 iterations, in the
+# JAX package's solve as in the port's (tests/test_torch_riccati_kkt.py)
+CROSSOVER_DENSE_F32_MAX_N = 50
+
+
+def tf32_pin(dev):
+    """Phase 15's ``tf32_pin``: TF32 switched on outside the port, the f32
+    MPC-LTI fleet (256 lanes, 10 steps) and MPC-CBF (10 steps) must come out
+    bit-equal to their runs with TF32 off.  The control: a product outside
+    the port must move under TF32, and so must both rollouts when
+    ``ipm._highp`` cannot set the precision; otherwise the bit-equality
+    would test nothing."""
+    import torch
+
+    from car_racing_tpu_torch.models import controllers
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused
+    from car_racing_tpu_torch.utils import params
+
+    f32 = torch.float32
+
+    def fleet_run():
+        fl = (track.load_track("l_shape", width=0.8, device=dev, dtype=f32),
+              dynamics.BicycleParams.default(device=dev, dtype=f32),
+              params.MPCParam.default(vt=0.8, device=dev, dtype=f32),
+              params.SystemParam.default(device=dev, dtype=f32),
+              controllers.target_state(0.8, 0.0, device=dev, dtype=f32))
+        xc0 = torch.as_tensor(np.array([0.1, 0, 0, 0, 0, 0]) + 0.05 * np.random.default_rng(
+            0).standard_normal((256, 6)), dtype=f32, device=dev)
+        return fused.rollout_mpc_tracking_batch(*fl, xc0, torch.zeros_like(xc0), n_steps=10)
+
+    def cbf_run():
+        kw32 = dict(device=dev, dtype=f32)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64), **kw32)
+        x0 = t(np.array([0.3, 0, 0, 0, 0, 0])
+               + 0.02 * np.random.default_rng(1).standard_normal((20, 6))[0])
+        return fused.rollout_mpccbf(
+            track.load_track("l_shape", width=1.0, **kw32), dynamics.BicycleParams.default(**kw32),
+            params.MPCCBFParam.default(vt=0.8, **kw32), params.SystemParam.default(**kw32),
+            t(CONTROLLER_TARGET), x0, t(np.zeros(6)), t(CBF_S_COEF), t(CBF_EY_COEF),
+            torch.tensor(CBF_ACTIVE, device=dev), t(CBF_HALFS), t(HALF), n_steps=10,
+            warm_iters=20)
+
+    rng = np.random.default_rng(7)
+    a_, b_ = (torch.as_tensor(rng.standard_normal((256, 256)), dtype=f32, device=dev)
+              for _ in range(2))
+    outs = {}
+    for setting in ("highest", "high"):
+        torch.set_float32_matmul_precision(setting)
+        outs[setting] = {"matmul": a_ @ b_, "fleet": fleet_run(), "mpccbf": cbf_run()}
+        after = torch.get_float32_matmul_precision()
+        require(after == setting, f"tf32_pin: the port left the precision at {after}, not {setting}")
+    # the control: TF32 on and the pin disarmed (``_highp`` sets the
+    # precision through this function)
+    set_precision = torch.set_float32_matmul_precision
+    torch.set_float32_matmul_precision = lambda precision: None
+    try:
+        outs["unpinned"] = {"fleet": fleet_run(), "mpccbf": cbf_run()}
+    finally:
+        torch.set_float32_matmul_precision = set_precision
+    torch.set_float32_matmul_precision("highest")
+
+    def compare(x_outs, y_outs):
+        pairs = list(zip(x_outs, y_outs))
+        return {"bit_equal": all(torch.equal(x, y) for x, y in pairs),
+                "max_abs_diff": max(float((x.double() - y.double()).abs().max())
+                                    for x, y in pairs)}
+
+    diffs = {name: compare(outs["highest"][name], outs["high"][name])
+             for name in ("fleet", "mpccbf")}
+    controls = {name: compare(outs["highest"][name], outs["unpinned"][name])
+                for name in ("fleet", "mpccbf")}
+    outside = float((outs["high"]["matmul"] - outs["highest"]["matmul"]).abs().max())
+    emit({"phase": "tf32_pin", "fleet_B": 256, "n_steps": 10, "dtype": "f32",
+          # a product outside the port: whether TF32 was really on there
+          "tf32_outside_max_abs_diff": outside, **diffs,
+          "unpinned_max_abs_diff": {name: d["max_abs_diff"] for name, d in controls.items()}})
+    require(outside > 0, "tf32_pin: a product outside the port did not move with TF32 on")
+    for name, d in diffs.items():
+        require(not controls[name]["bit_equal"],
+                f"tf32_pin: {name} did not move with TF32 on and the pin disarmed")
+        require(d["bit_equal"], f"tf32_pin: {name} moved by {d['max_abs_diff']} with TF32 on "
+                                "outside the port")
+
+
+def simulator_phases(dev):
+    """Phase 15: the offboard simulator's tracking path on the card, f64
+    unless stated, every simulator step one K1 launch; and the Riccati KKT
+    path of MPC-LTI.  :func:`tf32_pin`: TF32 on outside the port, the f32
+    fleet and MPC-CBF bit-equal to their runs with TF32 off; ``sim_pid`` and
+    ``sim_mpc``: the PID and MPC-LTI host loops against their goldens and
+    the fused rollout; ``sim_tracking``: ``control_test.tracking`` for pid,
+    lqr and mpc-lti (900 steps each) and a noisy PID run; ``riccati_kkt``:
+    the three KKT paths on 256 states; ``crossover``: their solve times by
+    horizon.  Returns the K1 launches by path and two paths for the
+    profile phase."""
+    import torch
+
+    from car_racing_tpu_torch.apps import common, control_test
+    from car_racing_tpu_torch.kernels import propagate as k1
+    from car_racing_tpu_torch.models import controllers
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused, policies
+    from car_racing_tpu_torch.utils import crossover, params
+    from car_racing_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+    f32, f64 = torch.float32, torch.float64
+    kw = dict(device=dev, dtype=f64)
+    launches = {}
+
+    tf32_pin(dev)
+
+    def sim_run(policy, n_steps, zero_noise=True, seed=0):
+        tr = common.build_track("l_shape", width=0.8, device=dev)
+        ego = common.build_ego(tr, zero_noise=zero_noise, seed=seed)
+        sim = common.build_sim(tr)
+        sim.add_vehicle(ego)
+        common.attach_policy(ego, sim, policy)
+        sim.sim(sim_time=n_steps * 0.1)
+        return sim, ego
+
+    mpc_policy = lambda: policies.MPCTracking(params.MPCParam.default(vt=0.8, **kw),
+                                              params.SystemParam.default(**kw))
+
+    # ---- sim_pid: the host PID loop of the pid_l_shape golden ----------------
+    golden = np.loadtxt("data/goldens/pid_l_shape.csv", delimiter=",")
+    k1.launches = 0
+    (_, ego), ms = timed(lambda: sim_run(policies.PIDTracking(vt=0.8), 200))
+    launches["sim_pid"] = k1.launches
+    log = np.asarray(ego.xcurv_log)
+    err = float(np.abs(log - golden).max()) if log.shape == golden.shape else float("nan")
+    emit({"phase": "sim_pid", "dtype": "f64", "n_steps": 200, "ms_per_step": ms / 200,
+          "max_abs_err": err, "atol": 1e-8, "k1_launches": launches["sim_pid"]})
+    require(err <= 1e-8, f"sim_pid: {err} off pid_l_shape")
+    require(launches["sim_pid"] == 200, f"sim_pid: K1 launched {launches['sim_pid']} times")
+
+    # ---- sim_mpc: the host MPC-LTI loop against the fused rollout ------------
+    golden = np.loadtxt("data/goldens/mpc_lti_l_shape.csv", delimiter=",")
+    k1.launches = 0
+    (_, ego), ms = timed(lambda: sim_run(mpc_policy(), 100))
+    launches["sim_mpc"] = k1.launches
+    log = np.asarray(ego.xcurv_log)
+    zeros = torch.zeros(6, **kw)
+    xc, _ = fused.rollout_mpc_tracking(
+        track.load_track("l_shape", width=0.8, **kw), dynamics.BicycleParams.default(**kw),
+        params.MPCParam.default(vt=0.8, **kw), params.SystemParam.default(**kw),
+        controllers.target_state(0.8, 0.0, **kw), zeros, zeros, n_steps=60)
+    fused_err = float(np.abs(log[:60] - xc[1:].cpu().numpy()).max())
+    golden_err = float(np.abs(log[:100] - golden[1:101]).max())
+    emit({"phase": "sim_mpc", "dtype": "f64", "n_steps": 100, "ms_per_step": ms / 100,
+          "fused_60_max_abs": fused_err, "fused_atol": 1e-9, "golden_100_max_abs": golden_err,
+          "golden_atol": 1e-4, "k1_launches": launches["sim_mpc"]})
+    require(fused_err <= 1e-9, f"sim_mpc: {fused_err} off the fused rollout")
+    require(golden_err <= 1e-4, f"sim_mpc: {golden_err} off mpc_lti_l_shape")
+    require(launches["sim_mpc"] == 100, f"sim_mpc: K1 launched {launches['sim_mpc']} times")
+
+    # ---- sim_tracking: the control_test driver, 90 s of each policy -----------
+    rows = []
+    for policy in ("pid", "lqr", "mpc-lti"):
+        GLOBAL_TIMER.samples.clear()
+        k1.launches = 0
+        sim, ms = timed(lambda: control_test.tracking(
+            {"ctrl_policy": policy, "simulation": True, "zero_noise": True,
+             "track_layout": "l_shape", "device": str(dev)}))
+        n_k1 = k1.launches
+        launches[f"sim_tracking_{policy}"] = n_k1
+        ego = sim.vehicles["ego"]
+        traj = sim.full_trajectory("ego")
+        tail = traj[len(traj) // 2:]
+        u = np.asarray([v for lap in ego.inputs for v in lap] + list(ego.lap_inputs))
+        lat = GLOBAL_TIMER.summary()["mpc_lti" if policy == "mpc-lti" else policy]
+        row = {"policy": policy, "n_steps": SIM_STEPS, "laps": ego.laps,
+               "ms_per_sim_step": ms / SIM_STEPS, "solve_p50_ms": lat["p50_ms"],
+               "solve_p99_ms": lat["p99_ms"], "solve_max_ms": lat["max_ms"],
+               "n_samples": lat["count"], "tail_mean_vx": float(tail[:, 0].mean()),
+               "tail_max_abs_ey": float(np.abs(tail[:, 5]).max()),
+               "tail_mean_abs_ey": float(np.abs(tail[:, 5]).mean()),
+               "max_abs_u": np.abs(u).max(axis=0).tolist(), "k1_launches": n_k1}
+        rows.append(row)
+        require(np.isfinite(traj).all() and np.isfinite(u).all(), f"sim_tracking {policy}: "
+                "non-finite state or input")
+        require(abs(row["tail_mean_vx"] - 0.8) < SIM_VX_TOL[policy],
+                f"sim_tracking {policy}: tail speed {row['tail_mean_vx']}")
+        require(row["tail_max_abs_ey"] < 0.8, f"sim_tracking {policy}: leaves the track")
+        require(ego.laps >= 3, f"sim_tracking {policy}: {ego.laps} laps in {SIM_STEPS} steps")
+        require(n_k1 == SIM_STEPS and lat["count"] == SIM_STEPS,
+                f"sim_tracking {policy}: {n_k1} K1 launches, {lat['count']} solves")
+        if policy == "mpc-lti":
+            require(row["tail_mean_abs_ey"] < 0.15, f"sim_tracking mpc-lti: mean |ey| "
+                    f"{row['tail_mean_abs_ey']}")
+            require(row["max_abs_u"][0] <= 0.5 + 1e-6 and row["max_abs_u"][1] <= 1.0 + 1e-6,
+                    f"sim_tracking mpc-lti: inputs {row['max_abs_u']} outside their box")
+
+    # one noisy PID run: every noise increment inside its clip
+    real_noise, incs = dynamics.process_noise, []
+
+    def recorded(gen, xc):
+        out = real_noise(gen, xc)
+        incs.append((out - xc)[..., :3])
+        return out
+
+    dynamics.process_noise = recorded
+    try:
+        k1.launches = 0
+        _, ego = sim_run(policies.PIDTracking(vt=0.8), 200, zero_noise=False, seed=0)
+        launches["sim_pid_noisy"] = k1.launches
+    finally:
+        dynamics.process_noise = real_noise
+    inc = torch.cat(incs).cpu().numpy()
+    half_clip = 0.5 * np.asarray(dynamics.NOISE_CLIP)
+    emit({"phase": "sim_tracking", "layout": "l_shape", "dtype": "f64", "policies": rows,
+          "noisy_pid": {"seed": 0, "n_steps": 200, "draws": len(inc),
+                        "max_abs_increment": np.abs(inc).max(axis=0).tolist(),
+                        "half_clip": half_clip.tolist(), "increment_std": inc.std(axis=0).tolist(),
+                        "final_s": float(ego.xcurv[4]), "laps": ego.laps,
+                        "k1_launches": launches["sim_pid_noisy"]}})
+    require(len(inc) == 200 and (np.abs(inc) <= half_clip * (1 + 1e-9)).all(),
+            "sim_tracking: a noise increment leaves its clip")
+    require(np.isfinite(ego.xcurv).all(), "sim_tracking: the noisy run is not finite")
+
+    # ---- riccati_kkt: the three KKT paths on 256 states, N = 10 --------------
+    x_np = (np.array([0.5, 0, 0, 0, 1, 0.1])
+            + 0.1 * np.random.default_rng(1).standard_normal((256, 6)))
+    kkt_rows = {}
+    for dtype, name in ((f64, "f64"), (f32, "f32")):
+        kd = dict(device=dev, dtype=dtype)
+        p = params.MPCParam.default(vt=0.8, **kd)
+        sysp = params.SystemParam.default(**kd)
+        x, xt = torch.as_tensor(x_np, **kd), controllers.target_state(0.8, 0.0, **kd)
+        width = torch.tensor(0.8, **kd)
+        res = {}
+        for kkt in ("dense", "riccati", "riccati_parallel"):
+            solves = []
+            (_, U, _), ms = timed(lambda: controllers.mpc_lti(
+                x, xt, p, sysp, width, return_traj=True, kkt=kkt, solves=solves))
+            its = solves[0].iterations.cpu().numpy()
+            res[kkt] = (U.double().cpu().numpy(), solves[0].converged.cpu().numpy(), its, ms)
+        conv_all = res["dense"][1] & res["riccati"][1] & res["riccati_parallel"][1]
+        same_flags = all(np.array_equal(res["dense"][1], res[k][1])
+                         for k in ("riccati", "riccati_parallel"))
+        u_err = {k: float(np.abs(res[k][0] - res["dense"][0])[conv_all].max(initial=0.0))
+                 for k in ("riccati", "riccati_parallel")}
+        kkt_rows[name] = {
+            "converged": {k: int(v[1].sum()) for k, v in res.items()}, "same_flags": same_flags,
+            "iterations_mean": {k: float(v[2].mean()) for k, v in res.items()},
+            "iterations_max": {k: int(v[2].max()) for k, v in res.items()},
+            "ms": {k: v[3] for k, v in res.items()},
+            "u_max_abs_vs_dense_where_converged": u_err}
+        bound = 1e-6 if dtype == f64 else 1e-3
+        require(same_flags, f"riccati_kkt {name}: converged flags differ from the dense solve's")
+        require(all(np.isfinite(v[0]).all() for v in res.values()), f"riccati_kkt {name}: "
+                "non-finite U")
+        require(max(u_err.values()) <= bound, f"riccati_kkt {name}: U {u_err} off the dense "
+                f"solve (bound {bound})")
+    emit({"phase": "riccati_kkt", "B": 256, "N": 10, **kkt_rows})
+
+    # ---- crossover: one-state solve times by horizon, f32 ------------------
+    rows = crossover.measure(CROSSOVER_HORIZONS, CROSSOVER_REPS, device=dev)
+    emit({"phase": "crossover", "dtype": "f32", "iters": 30, "rows": rows})
+    for r in rows:
+        gated = [k for k in crossover.KKTS if k != "dense" or r["N"] <= CROSSOVER_DENSE_F32_MAX_N]
+        require(all(r[f"{k}_finite"] for k in crossover.KKTS)
+                and all(r[f"{k}_converged"] == r["n_samples"] for k in gated),
+                f"crossover N={r['N']}: a solve is not finite or did not converge: {r}")
+
+    # ---- the profile phase's paths -------------------------------------------
+    kd = dict(device=dev, dtype=f32)
+    p50 = params.MPCParam.default(vt=0.8, **kd)
+    p50 = params.MPCParam(A=p50.A, B=p50.B, Q=p50.Q, R=p50.R, vt=p50.vt, eyt=p50.eyt,
+                          num_horizon=50)
+    x50 = torch.as_tensor(x_np[:1], **kd)
+    paths = {
+        "sim_mpc_20_steps": lambda: sim_run(mpc_policy(), 20),
+        "riccati_kkt_N50": lambda: controllers.mpc_lti(
+            x50, controllers.target_state(0.8, 0.0, **kd), p50, params.SystemParam.default(**kd),
+            torch.tensor(0.8, **kd), kkt="riccati"),
+    }
+    return launches, paths
+
+
 def run():
     import torch
 
@@ -959,9 +1264,9 @@ def run():
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
-    # full-precision float32 products everywhere (TF32 keeps ~3 digits)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # full-precision float32 products outside the port too (TF32 keeps ~3
+    # digits); the port's solvers and rollouts pin it themselves (tf32_pin)
+    torch.set_float32_matmul_precision("highest")
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
@@ -1341,6 +1646,9 @@ def run():
     with open("data/goldens/racing_game_spread.json") as f:
         racing_k1, racing_k2, racing_shapes, racing_paths = racing_game_phases(dev, json.load(f))
 
+    # ---- 15. the offboard simulator and the Riccati KKT path ------------------
+    sim_k1, sim_paths = simulator_phases(dev)
+
     # ---- 12. kernel timings at the paths' shapes ------------------------------
     # K1 at the fleet's B = 256, the MPC-CBF and iLQR bench's B = 1 and the
     # racing fleets' B = 8 and 64 in f32, the LMPC, controller and racing
@@ -1459,6 +1767,7 @@ def run():
         "learning_fleet_5_steps": lambda: learning_fleet(5),
         **controller_paths,
         **racing_paths,
+        **sim_paths,
     }
     # both untraced times before any trace: a sweep timed right after the
     # fleet's trace read twice its phase-6 time on the H100
@@ -1471,8 +1780,10 @@ def run():
         {"name": "propagate", "route": "cuda",
          "source": "car_racing_tpu_torch/csrc/propagate.cu",
          "replaces": "car_racing_tpu/ops/pallas_kernels.py:436",
-         "launches": fleet_k1 + sum(controller_k1.values()) + sum(racing_k1.values()),
-         "launches_by_path": {"mpc_lti_fleet": fleet_k1, **controller_k1, **racing_k1},
+         "launches": (fleet_k1 + sum(controller_k1.values()) + sum(racing_k1.values())
+                      + sum(sim_k1.values())),
+         "launches_by_path": {"mpc_lti_fleet": fleet_k1, **controller_k1, **racing_k1,
+                              **sim_k1},
          # the worst of every K1 comparison in this run; by shape below
          "max_abs_err": max(k1_err.values()),
          "max_abs_err_by_shape": {f"{d}_{c}": e for (d, c), e in k1_err.items()},

@@ -12,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from car_racing_tpu_torch.apps import common, control_test
 from car_racing_tpu_torch.kernels import cholesky as k2, propagate as k1
 from car_racing_tpu_torch.models import controllers
 from car_racing_tpu_torch.ops import dynamics, track
 from car_racing_tpu_torch.planning import overtake
-from car_racing_tpu_torch.racing import fused
+from car_racing_tpu_torch.racing import fused, policies, simulator, vehicles
 from car_racing_tpu_torch.utils import convert, fixtures, params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -82,6 +83,13 @@ ENTRY_POINTS = {
     "corridor_sweep_inputs": lambda: overtake.corridor_sweep_inputs(2, 10),
     "convert.to_port": lambda: convert.to_port(
         params.SystemParam, {"delta_max": 0.5, "a_max": 1.0, "v_max": 10.0, "v_min": 0.0}),
+    "LQRParam.default": lambda: params.LQRParam.default(),
+    "DynamicBicycleModel": lambda: vehicles.DynamicBicycleModel(name="ego"),
+    "CarRacingSim with a CUDA track": lambda: simulator.CarRacingSim().set_track(
+        track.load_track("l_shape")),
+    "control_test.tracking": lambda: control_test.tracking(
+        {"ctrl_policy": "pid", "simulation": True, "zero_noise": True,
+         "track_layout": "l_shape"}),
 }
 
 
@@ -300,3 +308,30 @@ def test_racing_overtake_step_solves_corridors_through_k2(monkeypatch):
         n_steps=1)
     assert bool(flags[0]) and shapes and set(shapes) == {(3, 20, 20)}
     assert k2.launches == 0  # CPU tensors: the plain version, no launch
+
+
+def test_simulator_step_sends_card_states_to_k1(monkeypatch):
+    """A simulator step moves the vehicle's host state to the track's
+    device and through K1's wrapper; a state on the card reaches the
+    kernel's checks and launch (here refused: the track stayed on the CPU),
+    never the plain loop."""
+    real, calls = k1.propagate, []
+
+    def on_card(tr, bike, xglob, xcurv, u, *args):
+        calls.append(tuple(xcurv.shape))
+        return real(tr, bike, _OnCard(xglob), _OnCard(xcurv), _OnCard(u), *args)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain loop ran for a CUDA tensor")
+
+    monkeypatch.setattr(k1, "propagate", on_card)
+    monkeypatch.setattr(k1, "plain", no_plain)
+    tr = common.build_track("l_shape", device="cpu")
+    ego = common.build_ego(tr)
+    sim = common.build_sim(tr)
+    sim.add_vehicle(ego)
+    common.attach_policy(ego, sim, policies.PIDTracking(vt=0.8))
+    k1.launches = 0
+    with pytest.raises(ValueError, match="track is torch.float64 on cpu; K1 needs"):
+        sim.sim(sim_time=0.1)
+    assert calls == [(1, 6)] and k1.launches == 0

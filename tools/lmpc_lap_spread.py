@@ -32,7 +32,11 @@ itself over its first ``SELF_STEPS`` steps, row by row, when vx is one ulp
 off, and when a lane runs in a 3-lane fleet (``vmap``) instead of alone.  The last line summarises each layout
 and package (keys ``<layout>/<package>``, with ``_f32`` appended in
 float32): the lap steps and the first rows off of the nudged laps;
-``--out`` merges that summary into a JSON file as well.
+``--out`` merges that summary into a JSON file as well.  With
+``--fleet-lane LANE`` it only runs that fleet for numpy seed 0 in JAX and in
+the port (on the CPU, f64) and compares lane ``LANE`` row by row
+(``l_shape/fleet_lane_<LANE>``: the first row apart by more than 1e-4 and
+whether a capped solve of the port's lane comes before it).
 
 ``data/goldens/lmpc_lap_spread.json`` is the summary of ``--ulps 12``
 (24 nudged laps a layout), with ``--port`` and, for l_shape, ``--dtype f32``.
@@ -223,6 +227,53 @@ def learning_summary(ulps):
     }
 
 
+def fleet_lane(lane, seed=0, atol=1e-4):
+    """``l_shape/fleet_lane_<lane>``: lane ``lane`` of the 64-lane learning
+    fleet of ``chip_smoke.py`` (numpy ``seed``), the JAX fleet's and the
+    port's (on the CPU, f64) row by row: the first row apart by more than
+    ``atol``, the port lane's first solve stopped at the 40-iteration cap,
+    and each fleet's largest |ey| on that lane and over all lanes."""
+    import torch
+
+    from car_racing_tpu_torch.ops import dynamics, track
+    from car_racing_tpu_torch.racing import fused
+    from car_racing_tpu_torch.utils import fixtures, params
+
+    with np.load("data/bench/lmpc_seed_l_shape.npz") as f:
+        sd = {k: f[k] for k in f.files}
+    x0, jxc, jsteps = jax_learning_fleet(sd, seed)
+    kw = dict(device="cpu", dtype=torch.float64)
+    ps = fixtures.load_lmpc_seed("l_shape", **kw)
+    solves = []
+    pxc, _, psteps, _ = fused.rollout_lmpc_learning_batch(
+        track.load_track("l_shape", width=1.0, **kw), dynamics.BicycleParams.default(**kw),
+        params.LMPCParam.default(**kw), params.SystemParam.default(**kw),
+        torch.as_tensor(x0, **kw), ps["xglob0"].expand(FLEET_B, 6).contiguous(), ps["ss1"],
+        ps["q1"], ps["u1"], ps["counter"], ps["ss2"], ps["q2"], ps["u2"], ps["pid_lap_steps"],
+        ps["lin_points0"], ps["lin_input0"], n_laps=1, n_steps=FLEET_STEPS, solves=solves)
+    pxc = pxc.numpy()
+    its = np.stack([s.iterations.numpy() for s in solves], axis=1)  # (B, n_steps)
+    row_err = np.abs(pxc[lane] - jxc[lane]).max(axis=1)
+    off = np.nonzero(row_err > atol)[0]
+    capped = np.nonzero(its[lane] >= 40)[0]
+    first_off = int(off[0]) if len(off) else None
+    first_capped = int(capped[0]) if len(capped) else None
+    return {"seed": seed, "lane": lane, "atol": atol, "first_row_off": first_off,
+            "first_capped_step": first_capped,
+            "capped_before_first_row_off": (first_capped is not None and first_off is not None
+                                            and first_capped < first_off),
+            "lap_steps": {"jax": int(jsteps[lane]), "port": int(psteps[lane, 0])},
+            "max_abs_ey_lane": {"jax": float(np.abs(jxc[lane, :, 5]).max()),
+                                "port": float(np.abs(pxc[lane, :, 5]).max())},
+            "max_abs_ey_fleet": {"jax": float(np.abs(jxc[..., 5]).max()),
+                                 "port": float(np.abs(pxc[..., 5]).max())},
+            "lanes_off_track": {"jax": np.nonzero(np.abs(jxc[..., 5]).max(axis=1) > 1.0)[0]
+                                .tolist(),
+                                "port": np.nonzero(np.abs(pxc[..., 5]).max(axis=1) > 1.0)[0]
+                                .tolist()},
+            "row_max_abs_to_first_off": row_err[: (first_off or len(row_err)) + 1].max().item()}
+
+
 def compare(xc, lap_steps, ref):
     """Lap steps, and distance from the reference lap ``ref`` on the rows
     the two share."""
@@ -243,8 +294,22 @@ def main():
                     help="run the laps in this dtype (f32: against the unnudged JAX f32 lap)")
     ap.add_argument("--learning", action="store_true",
                     help="the multi-lap learning rollout and the protocol (l_shape, f64 only)")
+    ap.add_argument("--fleet-lane", type=int,
+                    help="only compare this lane of the seed-0 64-lane learning fleet, JAX "
+                         "against the port on the CPU (about 10 min)")
     ap.add_argument("--out", help="also merge the summary into this JSON file")
     args = ap.parse_args()
+    if args.fleet_lane is not None:
+        summary = {f"l_shape/fleet_lane_{args.fleet_lane}": fleet_lane(args.fleet_lane)}
+        print(json.dumps({"summary": summary}), flush=True)
+        if args.out:
+            with open(args.out) as f:
+                merged = json.load(f)
+            merged.update(summary)
+            with open(args.out, "w") as f:
+                json.dump(merged, f, indent=1)
+                f.write("\n")
+        return
     f32 = args.dtype == "f32"
     if f32:  # as the package runs in f32: with x64 on, literals would promote to f64
         jax.config.update("jax_enable_x64", False)

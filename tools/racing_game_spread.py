@@ -4,7 +4,8 @@ short runs from states of those laps.
 
     python -m tools.racing_game_spread [--ulps 12] [--port] [--port-ulps 2]
                                        [--out data/goldens/racing_game_spread.json]
-                                       [--f32-only | --replay-port]
+                                       [--f32-only | --replay-port | --more-l-shape HI
+                                        | --passes HI | --replay-card FILE]
 
 Run from the repository root.  Runs the JAX package's
 ``rollout_racing_game`` on the CPU:
@@ -42,7 +43,25 @@ Run from the repository root.  Runs the JAX package's
 With ``--port`` the PyTorch port's laps run on the CPU from the same nudged
 states too, for k = -port_ulps..port_ulps (``nudged_port``).  With
 ``--f32-only`` only the two float32 records are rerun into the ``--out``
-file.  With ``--replay-port`` nothing is rerun in JAX: the port replays
+file.  With ``--more-l-shape HI`` the l_shape golden lap runs nudged by
+ulps+1..HI ulps either way, and its laps and their spread are added to the
+``--out`` file as ``nudged_more``, every other entry as it was (with
+``--port``, the port's laps for k = -port_ulps..port_ulps too, on the CPU).
+With ``--passes HI`` the l_shape golden lap runs nudged by -HI..HI ulps and
+each lap's encounters with the cars are printed as
+``tools/racing_game_card_spread.py`` summarises the port's laps on the
+card (where its least barrier is reached, how closely it passes each car
+side by side), and written to ``--out`` if given; the spread file is not
+touched (about 4 minutes for HI = 25).
+With ``--replay-card FILE`` (the ``--out`` of
+``tools/racing_game_card_spread.py``) the unnudged l_shape lap the port ran
+on the GPU is replayed in JAX: short runs from its rows r - d (as the
+``injected`` runs start, with vx nudged by -3..3 ulps, and once in the port
+on the CPU) up to row r + 5, r the lap's closest row, each run's least
+barrier and its least |dey| beside the car it comes closest to.  Whether
+the reference, from the states the card reached, passes that car as close
+as the card did (about 3 minutes).
+With ``--replay-port`` nothing is rerun in JAX: the port replays
 every injected run of the ``--out`` file on the CPU in float64 and prints
 its distance from the JAX run (rows reached through overtake steps only,
 and rows at or after an LMPC step) over the runs in which no solve
@@ -211,6 +230,97 @@ def nudged(layout, ulps, port_ulps=0):
     out = {"golden_lap_steps": len(golden) - 1, "unnudged": laps[0], "laps": laps,
            **spread_of(laps)}
     return out, ({"laps": port_laps, **spread_of(port_laps)} if port_laps else None)
+
+
+def nudged_more(layout, lo, hi, port_ulps=0):
+    """The golden lap of ``layout`` nudged by k = +-lo..+-hi ulps, beyond
+    the ``nudged`` record's: its laps and their spread; with ``port_ulps``
+    also the port's laps (on the CPU) for k = -port_ulps..port_ulps."""
+    _, (s_coef, ey_coef), _, n_steps = SCENARIOS[layout]
+    golden = np.loadtxt(f"data/goldens/racing_game_{layout}.csv", delimiter=",")
+    sd = seed_inputs(layout)
+    L = lap_length(layout)
+    laps, port_laps = [], []
+    for k in range(-max(hi, port_ulps), max(hi, port_ulps) + 1):
+        x0 = sd["xcurv0"].copy()
+        x0[0] = nudge(x0[0], k)
+        args = rollout_args(layout, x0, sd["xglob0"], s_coef, ey_coef)
+        if lo <= abs(k) <= hi:
+            xc, us, ot, ls = run_jax(layout, args, n_steps)
+            laps.append({"k": k, **summarise(xc, ot, ls, golden, s_coef, ey_coef, L)})
+            print(json.dumps({"layout": layout, "package": "jax", **laps[-1]}), flush=True)
+        if abs(k) <= port_ulps:
+            xc, ot, ls = run_port(layout, args, n_steps)
+            port_laps.append({"k": k, **summarise(xc, ot, ls, golden, s_coef, ey_coef, L)})
+            print(json.dumps({"layout": layout, "package": "port", **port_laps[-1]}), flush=True)
+    out = {"vx_ulps": [lo, hi], "laps": laps, **spread_of(laps)}
+    if port_laps:
+        out["port"] = {"vx_ulps": port_ulps, "laps": port_laps, **spread_of(port_laps)}
+    return out
+
+
+def passes(hi):
+    """The l_shape golden lap nudged by k = -hi..hi ulps in JAX: per lap its
+    lap steps, overtake steps and least barrier, where that is reached,
+    and how closely the lap passes each car side by side."""
+    from tools.racing_game_card_spread import alongside, closest
+
+    layout = "l_shape"
+    _, (s_coef, ey_coef), _, n_steps = SCENARIOS[layout]
+    sd = seed_inputs(layout)
+    L = lap_length(layout)
+    laps = []
+    for k in range(-hi, hi + 1):
+        x0 = sd["xcurv0"].copy()
+        x0[0] = nudge(x0[0], k)
+        xc, _, ot, ls = run_jax(layout, rollout_args(layout, x0, sd["xglob0"], s_coef, ey_coef),
+                                n_steps)
+        rows = xc[: ls + 1]
+        laps.append({"k": k, "lap_steps": ls, "overtake_steps": int(ot[:ls].sum()),
+                     "least_barrier": least_barrier(rows, s_coef, ey_coef, L),
+                     "closest": closest(rows, s_coef, ey_coef, L),
+                     "alongside": alongside(rows, s_coef, ey_coef, L)})
+        print(json.dumps({"layout": layout, "package": "jax", **laps[-1]}), flush=True)
+    return {"vx_ulps": hi, "laps": laps}
+
+
+REPLAY_LEADS, REPLAY_ULPS, REPLAY_AFTER = (1, 2, 4, 7, 10, 15, 20), 3, 5
+
+
+def replay_card(path):
+    """JAX runs from the rows of the card's unnudged l_shape lap before its
+    closest row (module docstring)."""
+    from tools.racing_game_card_spread import alongside, closest
+
+    layout = "l_shape"
+    _, (s_coef, ey_coef), _, _ = SCENARIOS[layout]
+    L = lap_length(layout)
+    with open(path) as f:
+        card = json.load(f)["unnudged"]
+    rows, us = np.array(card["xcurv"])[: card["lap_steps"] + 1], np.array(card["u"])
+    near = closest(rows, s_coef, ey_coef, L)
+    r, car = near["row"], near["car"]
+    gap = lambda run_rows, sc: alongside(run_rows, sc, ey_coef, L)[car]["min_dey"]
+    out = {"card": {**near, "min_dey_alongside": gap(rows, s_coef)}, "replays": []}
+    for d in REPLAY_LEADS:
+        k = r - d
+        x0, xg0, sc, lp0, li0 = injected_inputs(layout, rows, us, k, s_coef)
+        runs = []
+        for nudge_k in range(-REPLAY_ULPS, REPLAY_ULPS + 1):
+            x = x0.copy()
+            x[0] = nudge(x[0], nudge_k)
+            xc, _, ot, _ = run_jax(layout, rollout_args(layout, x, xg0, sc, ey_coef, lp0, li0),
+                                   d + REPLAY_AFTER)
+            runs.append({"k": nudge_k, "least_barrier": least_barrier(xc, sc, ey_coef, L),
+                         "min_dey_alongside": gap(xc, sc), "overtake_steps": int(ot.sum())})
+        pxc, _, _ = run_port(layout, rollout_args(layout, x0, xg0, sc, ey_coef, lp0, li0),
+                             d + REPLAY_AFTER)
+        rec = {"from_row": k, "lead": d, "jax": runs,
+               "port_cpu": {"least_barrier": least_barrier(pxc, sc, ey_coef, L),
+                            "min_dey_alongside": gap(pxc, sc)}}
+        out["replays"].append(rec)
+        print(json.dumps(rec), flush=True)
+    return out
 
 
 def run_port(layout, args, n_steps, hold=0.15):
@@ -412,7 +522,40 @@ def main():
     ap.add_argument("--replay-port", action="store_true",
                     help="replay the --out file's injected runs in the port and print the "
                          "distances")
+    ap.add_argument("--more-l-shape", type=int, metavar="HI",
+                    help="add the l_shape laps nudged by ulps+1..HI either way to the --out "
+                         "file as nudged_more, its other entries unchanged")
+    ap.add_argument("--passes", type=int, metavar="HI",
+                    help="print how the l_shape laps nudged by -HI..HI pass the cars; the "
+                         "spread file is not touched")
+    ap.add_argument("--replay-card", metavar="FILE",
+                    help="replay in JAX the card's unnudged l_shape lap from FILE (the --out "
+                         "of tools.racing_game_card_spread) before its closest row")
     a = ap.parse_args()
+    if a.replay_card:
+        out = replay_card(a.replay_card)
+        if a.out:
+            with open(a.out, "w") as f:
+                json.dump(out, f)
+                f.write("\n")
+        print(json.dumps(out["card"]))
+        return
+    if a.passes:
+        out = passes(a.passes)
+        if a.out:
+            with open(a.out, "w") as f:
+                json.dump(out, f)
+                f.write("\n")
+        return
+    if a.more_l_shape:
+        with open(a.out) as f:
+            out = json.load(f)
+        out.setdefault("nudged_more", {})["l_shape"] = nudged_more(
+            "l_shape", out["ulps"] + 1, a.more_l_shape, a.port_ulps if a.port else 0)
+        with open(a.out, "w") as f:
+            json.dump(out, f)
+            f.write("\n")
+        return
     if a.replay_port:
         with open(a.out) as f:
             print(json.dumps({"replay_port": replay_port(json.load(f))}))
